@@ -1,0 +1,552 @@
+"""The inference engine: model dir -> packed ROI batches -> probabilities.
+
+The port of ``sykepic_tpu/compute/engine.py``. One dispatch is
+
+    uint8 windows or canvases --H2D (raw, or the wire codec decoded on the
+    device)--> resize/pad kernel (K1) --> ResNet on cuDNN --> temperature
+    softmax --> fixed-point uint16 rows --D2H--> per-ROI probability rows
+
+The temperature hack is the reference's: logits are multiplied by
+``ln(1.3)`` before the softmax (``SOFTMAX_EXP``, reference
+``probability.py:18,191-194``).
+
+Both packings (shelf windows, the default, and per-ROI slot canvases with
+``SYKEPIC_PACKING=slots``) hand the kernel the same ``(10, R)`` int32 slot
+metadata (:data:`sykepic_tpu_torch.ops.preprocess.META_ROWS`); the kernel
+reads each ROI straight out of the uploaded pixels at its origin.
+
+The knobs and their defaults are the JAX package's, because they set the
+outputs: ``SYKEPIC_PACKING``, ``SYKEPIC_WIRE_CODEC``,
+``SYKEPIC_D2H_COMPACT``, ``SYKEPIC_BUCKETS`` and the depths of
+:mod:`sykepic_tpu_torch.utils.depths`.
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+import os
+import queue
+import threading
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .. import device as device_mod
+from ..ingest import pack, shelf, wirecodec
+from ..models import checkpoint
+from ..ops import preprocess, wiredecode
+from ..train import config as train_config
+from ..utils import logger, profiling
+from ..utils.depths import PIPELINE_DEPTH
+
+SOFTMAX_EXP = 1.3
+
+log = logger.get_logger("engine")
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# 17-bit all-ones: unreachable for finite rows (clipped to <= 131070), so
+# it round-trips non-finite device values back to NaN on the host
+_NONFINITE_SENTINEL = (1 << 17) - 1
+
+
+def _env_on(name: str) -> bool:
+    return os.environ.get(name, "on").lower() not in ("off", "0", "no")
+
+
+def _pack_probs_u16(p: torch.Tensor) -> torch.Tensor:
+    """(B, C) f32 probabilities -> (B, C + ceil(C/16)) fixed-point rows:
+    columns [0, C) carry round(p*1e5) & 0xFFFF, the tail words pack the
+    17th bit of each value, 16 classes per word (bit j of word w belongs
+    to class w*16+j). Non-finite values map to the sentinel 131071, which
+    the host turns back into NaN.
+
+    The rows are int16 tensors holding the uint16 bit patterns (torch's
+    uint16 lacks kernels on both devices): each word is brought into
+    [-32768, 32767] before the cast, so the cast is exact everywhere, and
+    the host views the bytes as uint16 (:func:`unpack_probs_u16`)."""
+    n, c = p.shape
+    finite = torch.isfinite(p)
+    safe = torch.where(finite, p.clamp(0.0, 1.3107), 0.0)
+    v = torch.round(safe * 1e5).to(torch.int32)  # half to even, as rint
+    v = torch.where(finite, v, _NONFINITE_SENTINEL)
+    nw = -(-c // 16)
+    ovf = torch.nn.functional.pad(v >> 16, (0, nw * 16 - c))  # 0/1
+    weights = 1 << torch.arange(16, dtype=torch.int32, device=p.device)
+    bits = (ovf.reshape(n, nw, 16) * weights).sum(dim=-1, dtype=torch.int32)
+    words = torch.cat([v & 0xFFFF, bits], dim=1)
+    return (words - (words >= 32768).to(torch.int32) * 65536).to(torch.int16)
+
+
+def unpack_probs_u16(rows: np.ndarray, num_classes: int) -> np.ndarray:
+    """Host inverse of :func:`_pack_probs_u16`: (B, C + ceil(C/16)) uint16
+    (or the int16 rows, viewed as uint16) -> (B, C) float32
+    probabilities, round(p*1e5) / 1e5 to within one f32 ulp."""
+    rows = rows.view(np.uint16)
+    c = num_classes
+    lo = rows[:, :c].astype(np.int32)
+    words = rows[:, c:]
+    ovf = (words[:, :, None] >> np.arange(16, dtype=np.uint16)) & 1
+    # explicit target shape: reshape(n, -1) cannot infer a dim on an
+    # empty (0, nw) slice, and zero-valid batches do drain
+    ovf = ovf.reshape(len(rows), words.shape[1] * 16)[:, :c].astype(np.int32)
+    v = lo + (ovf << 16)
+    out = v.astype(np.float32) * np.float32(1e-5)
+    if (v >= _NONFINITE_SENTINEL).any():  # device saw NaN/Inf: stay loud
+        out[v >= _NONFINITE_SENTINEL] = np.nan
+    return out
+
+
+class Classifier:
+    """A loaded model directory, ready to classify packed ROI batches.
+
+    Parameters
+    ----------
+    model_dir : path
+        Directory with ``config.ini``, ``class_names.txt`` and
+        ``best_state.msgpack`` (or a reference ``best_state.pth``).
+    batch_size : int
+        Slot-path batch size; it also raises the shelf path's slot bound
+        above its 1024 floor.
+    dtype : str
+        "float32" (TF32 off in cuDNN and cuBLAS, so convolutions keep full
+        float32) or "bfloat16" (autocast; the kernel writes bf16 pixels).
+    device : str or torch.device
+        ``cuda`` (the default) or ``cpu``; ``cuda`` without a card raises.
+    """
+
+    def __init__(self, model_dir, batch_size: int = 256,
+                 dtype: str = "float32", buckets="auto", device=None):
+        self.device = device_mod.resolve(device)
+        model_dir = Path(model_dir)
+        if buckets == "auto":
+            # None = dynamic fine grid; SYKEPIC_BUCKETS=fixed selects the
+            # bounded list of canvas shapes
+            mode = os.environ.get("SYKEPIC_BUCKETS", "grid").lower()
+            buckets = pack.DEFAULT_BUCKETS if mode == "fixed" else None
+        if dtype not in _DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
+        self.model_dir = model_dir
+        self.classes = checkpoint.read_class_names(model_dir)
+        self.config = train_config.read_config(model_dir / "config.ini")
+        self.spec = train_config.get_preprocess_spec(self.config)
+        self.batch_size = batch_size
+        self.buckets = buckets
+        self.dtype = _DTYPES[dtype]
+        if self.device.type == "cuda" and self.dtype == torch.float32:
+            # cuDNN convolutions default to TF32 (about three digits),
+            # which would break the probability bound
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        model, _ = train_config.get_network(self.config, len(self.classes))
+        _, dropout = train_config.get_head_spec(self.config)
+        model.load_state_dict(
+            checkpoint.load_model_state(model_dir, dropout), strict=True)
+        # weights go to the device once; channels_last suits the NHWC
+        # pixels the kernel writes
+        self.model = model.to(self.device,
+                              memory_format=torch.channels_last).eval()
+        self.d2h_compact = _env_on("SYKEPIC_D2H_COMPACT")
+        self.packing = os.environ.get("SYKEPIC_PACKING", "shelf").lower()
+        self._batch_multiple = 1
+        # shelf dispatches size themselves by window bytes; batch_size
+        # still bounds the slot count when raised above the 1024 floor,
+        # and shelf.SLOT_CAP hard-bounds it
+        self._shelf_slot_cap = min(shelf.SLOT_CAP, max(batch_size, 1024))
+        # lossless wire codec (ingest/wirecodec.py): 4-bit delta planes and
+        # exception streams, decoded on the device; payoff-gated per
+        # dispatch, so incompressible content ships raw either way
+        self.wire_codec = _env_on("SYKEPIC_WIRE_CODEC")
+        self.wire_stats = {"encoded": 0, "raw": 0}
+        self._wire_stats_lock = threading.Lock()  # encoders run on a pool
+        # per-stage wall clocks, printed at stream end with SYKEPIC_PROFILE
+        self.timer = profiling.StageTimer()
+
+    # -- device side -------------------------------------------------------
+
+    def _put(self, a) -> torch.Tensor:
+        """Host array -> tensor on the device. From pageable memory a
+        non-blocking copy returns once the source is staged, so the caller
+        may reuse the buffer and the host runs ahead of the device."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device, non_blocking=True)
+
+    def _pixels(self, batch, host) -> torch.Tensor:
+        """The batch's uint8 pixel tensor on the device: the wire payload
+        decoded there when the producer encoded one, else ``host`` as is."""
+        if batch.wire is not None:
+            return wiredecode.decode(batch.wire, self.device)
+        return self._put(host)
+
+    def _forward(self, pixels: torch.Tensor, meta: torch.Tensor):
+        """Device tensors -> probability rows (fixed-point when
+        ``d2h_compact``): K1, the network, the temperature softmax."""
+        spec = self.spec
+        x = preprocess.eval_preprocess_meta(
+            pixels, meta, target_h=spec.target_h, target_w=spec.target_w,
+            # never ImageNet-normalized: the reference normalizes only its
+            # TRAIN transform (parity with its checkpoints)
+            num_chans=spec.num_chans, dtype=self.dtype)
+        x = x.permute(0, 3, 1, 2)  # NHWC storage: a channels_last NCHW view
+        with torch.autocast(self.device.type, dtype=torch.bfloat16,
+                            enabled=self.dtype == torch.bfloat16):
+            logits = self.model(x)
+        probs = torch.softmax(
+            logits.float() * math.log(SOFTMAX_EXP), dim=-1)
+        return _pack_probs_u16(probs) if self.d2h_compact else probs
+
+    def _shelf_meta(self, batch) -> np.ndarray:
+        """Slot metadata for one shelf batch as ONE (10, R) int32 array
+        (one upload per dispatch). Padding slots are 1x1 zero ROIs and
+        flow through harmlessly."""
+        new_h, new_w, pad_top, pad_left = preprocess.compute_geometry(
+            batch.heights, batch.widths, self.spec.target_h,
+            self.spec.target_w)
+        if self.spec.border == "mode":
+            border = batch.modes
+            if border is None:
+                # a hand-built ShelfBatch may lack precomputed modes:
+                # recover them from the windows
+                border = np.zeros(len(batch.heights), np.uint8)
+                for i in range(batch.n_valid):
+                    w, y, x = (int(batch.win_idx[i]), int(batch.y0[i]),
+                               int(batch.x0[i]))
+                    roi = batch.windows[
+                        w, y:y + int(batch.heights[i]),
+                        x:x + int(batch.widths[i])]
+                    border[i] = pack.mode_pixel(roi)
+        elif self.spec.border == "white":
+            border = np.full(len(batch.heights), 255, np.uint8)
+        elif self.spec.border == "black":
+            border = np.zeros(len(batch.heights), np.uint8)
+        else:
+            raise ValueError(f"Unknown border mode: {self.spec.border}")
+        return preprocess.slot_meta(
+            batch.heights, batch.widths, new_h, new_w, pad_top, pad_left,
+            border, win_idx=batch.win_idx, y_origin=batch.y0,
+            x_origin=batch.x0)
+
+    def _host_meta(self, batch: pack.PackedBatch) -> np.ndarray:
+        """Slot metadata for one packed batch: slot ``r`` reads canvas
+        ``r`` at origin 0. Cheap when the packer pre-computed the modes;
+        otherwise a histogram pass over the padded canvas."""
+        new_h, new_w, pad_top, pad_left = preprocess.compute_geometry(
+            batch.heights, batch.widths, self.spec.target_h,
+            self.spec.target_w)
+        if batch.modes is not None and self.spec.border == "mode":
+            border = batch.modes
+        else:
+            border = preprocess.border_values(
+                batch.canvas, batch.heights, batch.widths, self.spec.border)
+        return preprocess.slot_meta(batch.heights, batch.widths, new_h,
+                                    new_w, pad_top, pad_left, border)
+
+    def dispatch_shelf(self, batch, meta=None) -> torch.Tensor:
+        """Start inference for one shelf batch; returns the result on the
+        device without waiting for it."""
+        if meta is None:
+            meta = self._shelf_meta(batch)
+        with self.timer.stage("device.dispatch"), torch.inference_mode():
+            return self._forward(self._pixels(batch, batch.windows),
+                                 self._put(meta))
+
+    def dispatch_packed(self, batch: pack.PackedBatch, meta=None):
+        """Start inference for one slot-packed batch; returns the result
+        on the device without waiting for it."""
+        if meta is None:
+            meta = self._host_meta(batch)
+        with self.timer.stage("device.dispatch"), torch.inference_mode():
+            return self._forward(self._pixels(batch, batch.canvas),
+                                 self._put(meta))
+
+    def _host_rows(self, rows, n: int | None = None) -> np.ndarray:
+        rows = rows.numpy() if torch.is_tensor(rows) else np.asarray(rows)
+        if n is not None:
+            rows = rows[:n]
+        if self.d2h_compact:
+            return unpack_probs_u16(rows, len(self.classes))
+        return rows
+
+    def result_probs(self, device_result, n: int | None = None):
+        """A dispatch's result as (B, num_classes) float32 probabilities
+        on the host (waits for the device). With ``n`` only the first n
+        rows are decoded."""
+        return self._host_rows(device_result.cpu(), n)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- streams -------------------------------------------------------------
+
+    def _start_download(self, result: torch.Tensor):
+        """Start the D2H copy of a dispatch's rows into pinned host memory
+        and record an event behind it; the drain thread waits on the event
+        (``(host tensor, event or None)``)."""
+        if self.device.type != "cuda":
+            return result, None
+        host = torch.empty(result.shape, dtype=result.dtype, pin_memory=True)
+        host.copy_(result, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _packed(self, tagged_rois):
+        """The batches of the classify stream: shelf windows or slot
+        canvases, with ROIs over the network input pre-shrunk on the host
+        (the device would downsample them anyway; fewer bytes to upload)."""
+        shrink = (self.spec.target_h, self.spec.target_w)
+        modes = self.spec.border == "mode"
+        if self.packing == "shelf":
+            return shelf.pack_shelves(
+                tagged_rois, pre_shrink_to=shrink,
+                batch_multiple=self._batch_multiple, compute_modes=modes,
+                slot_cap=self._shelf_slot_cap)
+        # the slot packer works per ROI; columnar RoiBlocks unwrap here
+        return pack.pack_rois(
+            pack.roi_items(tagged_rois), batch_size=self.batch_size,
+            buckets=self.buckets, batch_multiple=self._batch_multiple,
+            pre_shrink_to=shrink, compute_modes=modes)
+
+    def _prepared(self, tagged_rois):
+        """Pack ROIs and compute host metadata on a producer thread,
+        yielding ``(batch, meta)`` ready to dispatch."""
+        host_meta = (self._shelf_meta if self.packing == "shelf"
+                     else self._host_meta)
+
+        def meta_fn(batch):
+            if self.wire_codec:
+                self._encode_wire(batch)
+            return host_meta(batch)
+
+        return self._produce_on_thread(self._packed(tagged_rois), meta_fn,
+                                       f"sykepic-{self.packing}")
+
+    def _produce_on_thread(self, gen, meta_fn, name: str,
+                           workers: int | None = None):
+        """Run a batch generator and its metadata pass off the dispatch
+        thread, yielding ``(batch, meta)`` in generator order; exceptions
+        relay to the consumer, and abandoning the iterator cancels the
+        producers.
+
+        Decode+pack stays sequential on one thread (the packer is a
+        stateful stream); ``meta_fn`` (wire encode + resize geometry) fans
+        out to a small pool, order kept by enqueuing futures. The native
+        encoder and NumPy release the GIL, so the stages overlap. With
+        fewer than 3 cores ``meta_fn`` runs inline on the packing thread.
+        """
+        if workers is None:
+            workers = 2 if (os.cpu_count() or 1) >= 3 else 0
+
+        q: queue.Queue = queue.Queue(maxsize=max(2 * workers, 4))
+        done = object()
+        cancel = threading.Event()  # set when the consumer goes away
+        pool = (ThreadPoolExecutor(max_workers=workers,
+                                   thread_name_prefix=f"{name}-meta")
+                if workers else None)
+
+        def offer(item) -> bool:
+            while not cancel.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def stage2(batch):
+            with self.timer.stage("host.meta"):
+                return batch, meta_fn(batch)
+
+        def produce():
+            try:
+                while True:
+                    with self.timer.stage("host.decode+pack"):
+                        batch = next(gen, None)
+                    if batch is None:
+                        break
+                    # the bounded queue is the backpressure
+                    item = pool.submit(stage2, batch) if pool else \
+                        stage2(batch)
+                    if not offer(item):
+                        return
+            except BaseException as e:  # re-raised on the consumer side
+                offer(e)
+                return
+            offer(done)
+
+        threading.Thread(target=produce, daemon=True, name=name).start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item.result() if pool else item
+        finally:
+            cancel.set()  # unblock the producer if we exit early
+            if pool:
+                pool.shutdown(wait=False, cancel_futures=True)
+
+    def _encode_wire(self, batch):
+        """Producer-thread half of the wire codec: encode the pixel tensor
+        (windows or canvas) when it pays; records the per-stream stats."""
+        pixels = (batch.windows if hasattr(batch, "windows")
+                  else batch.canvas)
+        with self.timer.stage("host.encode"):
+            batch.wire = wirecodec.encode(pixels)
+        with self._wire_stats_lock:
+            self.wire_stats[
+                "encoded" if batch.wire is not None else "raw"] += 1
+
+    def _drain_block(self, batch, host_rows, event):
+        """Drain-thread half of a dispatch: wait for its rows, unpack the
+        real ones, and return the batch's host buffers to their pools."""
+        n = batch.n_valid
+        with self.timer.stage("device.drain"):
+            if event is not None:
+                event.synchronize()
+            probs = self._host_rows(host_rows, n)
+        out = (np.asarray(batch.sample_idx[:n]),
+               np.asarray(batch.roi_ids[:n]), probs)
+        # the dispatch has finished, so its upload is long done: multi-MB
+        # host buffers go back to their pools
+        if batch.wire is not None:
+            wirecodec.recycle_payload(batch.wire)
+            batch.wire = None
+        if hasattr(batch, "win_idx"):
+            shelf.recycle_windows(batch)
+        return out
+
+    def classify_blocks(self, tagged_rois):
+        """Classify an iterable of ``(sample_idx, roi_id, uint8 image)`` or
+        :class:`~sykepic_tpu_torch.ingest.pack.RoiBlock` s, yielding
+        per-batch blocks ``(sample_idx (n,), roi_ids (n,), probs (n, C))``.
+
+        ROIs from different samples may share device batches; ordering is
+        not guaranteed (sort per sample before writing CSVs).
+
+        Pipelined: up to ``PIPELINE_DEPTH`` dispatches stay in flight. Each
+        result's copy into pinned host memory starts the moment it is
+        dispatched, behind a CUDA event, and one drain thread waits on the
+        events in order while this thread dispatches the next batches.
+        """
+        dispatch = (self.dispatch_shelf if self.packing == "shelf"
+                    else self.dispatch_packed)
+        drainer = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="sykepic-drain")
+        in_flight: deque = deque()
+        try:
+            for batch, meta in self._prepared(tagged_rois):
+                host_rows, event = self._start_download(dispatch(batch, meta))
+                in_flight.append(drainer.submit(
+                    self._drain_block, batch, host_rows, event))
+                if len(in_flight) >= PIPELINE_DEPTH:
+                    yield in_flight.popleft().result()
+            while in_flight:
+                yield in_flight.popleft().result()
+        finally:
+            drainer.shutdown(wait=False, cancel_futures=True)
+        self.timer.report()
+
+    def classify_rois(self, tagged_rois):
+        """Per-ROI adapter over :meth:`classify_blocks`: yields
+        ``(sample_idx, roi_id, probs_row)`` for every real ROI."""
+        for sidx, rids, probs in self.classify_blocks(tagged_rois):
+            for i in range(len(rids)):
+                yield int(sidx[i]), int(rids[i]), probs[i]
+
+    def onchip_rate(self, tagged_rois, repeats: int = 4,
+                    max_batches: int = 32):
+        """ROIs/s of the device work ALONE: upload and download excluded.
+
+        Packs the stream exactly like :meth:`classify_rois`, makes every
+        batch's pixels and metadata device-resident first (raw pixels: the
+        wire decode is not timed), then runs all dispatches back to back
+        ``repeats`` times between two synchronizations. Every batch stays
+        resident for the probe, so the stream is capped at ``max_batches``
+        dispatches. Returns ``(n_rois, seconds_per_pass)``.
+        """
+        args_list = []
+        n_rois = 0
+        for batch, meta in itertools.islice(self._prepared(tagged_rois),
+                                            max_batches):
+            # pooled window buffers return to the pool only when drained,
+            # which never happens here, so the packer cannot overwrite them
+            host = batch.windows if self.packing == "shelf" else batch.canvas
+            args_list.append((self._put(host), self._put(meta)))
+            n_rois += batch.n_valid
+        with torch.inference_mode():
+            for args in args_list:  # warm pass: cuDNN plans, allocator
+                self._forward(*args)
+            self._sync()
+            t0 = time.perf_counter()
+            for _ in range(repeats):
+                for args in args_list:
+                    self._forward(*args)
+            self._sync()
+        return n_rois, (time.perf_counter() - t0) / max(repeats, 1)
+
+    def precompile(self, canvas_shapes) -> int:
+        """Warm up each shape key with one all-zeros dispatch:
+        ``(B, Hc, Wc)`` canvas shapes for the slot path, ``(n_windows,
+        n_slots)`` pairs for the shelf path (snapped onto the ladders
+        pack_shelves emits on). Torch runs eagerly, so nothing compiles;
+        the first dispatch of a shape picks its cuDNN algorithms and grows
+        the allocator's pools. Returns the number of dispatches."""
+        slot_ceil = shelf.floor_slots(self._shelf_slot_cap,
+                                      self._batch_multiple)
+        keys = {
+            (shelf.pad_nc(k[0]),
+             min(shelf.pad_slots(k[1], self._batch_multiple), slot_ceil))
+            if len(k) == 2 else tuple(k)
+            for k in canvas_shapes
+        }
+        results = []
+        for key in sorted(keys):
+            if len(key) == 2:  # shelf program: (window count, slot count)
+                nc, r = key
+                sbatch = shelf.ShelfBatch(
+                    windows=np.zeros((nc, shelf.WIN_H, shelf.WIN_W),
+                                     np.uint8),
+                    win_idx=np.zeros(r, np.int32),
+                    y0=np.zeros(r, np.int32),
+                    x0=np.zeros(r, np.int32),
+                    heights=np.ones(r, np.int32),
+                    widths=np.ones(r, np.int32),
+                    roi_ids=np.zeros(r, np.int64),
+                    sample_idx=np.zeros(r, np.int32),
+                    n_valid=0,
+                    modes=np.zeros(r, np.uint8),
+                )
+                if self.wire_codec:
+                    # warm the decode too (one nonzero pixel forces an
+                    # exception stream)
+                    wired = np.zeros_like(sbatch.windows)
+                    wired[0, 0, 0] = 200
+                    sbatch.wire = wirecodec.encode(wired, force=True)
+                results.append(self.dispatch_shelf(sbatch))
+                continue
+            b, hc, wc = key
+            batch = pack.PackedBatch(
+                canvas=np.zeros((b, hc, wc), np.uint8),
+                heights=np.ones(b, np.int32),
+                widths=np.ones(b, np.int32),
+                roi_ids=np.zeros(b, np.int64),
+                sample_idx=np.zeros(b, np.int32),
+                n_valid=0,
+                modes=np.zeros(b, np.uint8),
+            )
+            if self.wire_codec:
+                wired = np.zeros((b, hc, wc), np.uint8)
+                wired[0, 0, 0] = 200
+                batch.wire = wirecodec.encode(wired, force=True)
+            results.append(self.dispatch_packed(batch))
+        self._sync()
+        return len(results)

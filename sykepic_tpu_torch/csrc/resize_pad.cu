@@ -1,0 +1,174 @@
+// Fused eval preprocessing for Hopper (sm_90a): per-slot bilinear resize of
+// a uint8 ROI, pad to the square target with the slot's border value, /255,
+// replication to the channel count and an NHWC store (f32 or bf16).
+//
+// Replaces the TPU kernel sykepic_tpu/ops/pallas_preprocess.py::
+// resize_pad_batch_pallas (and, on the shelf path, the einsum
+// resize_pad_batch_mxu that took its place there because the Pallas kernel
+// had no origins). Plain version: sykepic_tpu_torch/ops/preprocess.py::
+// resize_pad_plain, which repeats this arithmetic step by step.
+//
+// What bounds it: the bytes it writes. Each slot stores T_h*T_w*C values
+// (180*180*3*4 B = 389 KB in f32) and reads at most its ROI's uint8 bytes
+// plus 40 B of metadata, at two FLOPs per tap — far below the card's
+// compute rate. The design follows: one block per (slot, tile of output
+// rows); the block computes the per-row and per-column taps once into
+// shared memory; each thread then makes one output pixel from four uint8
+// loads and writes its C values. The TPU kernel's banded matrices
+// (A_h @ img @ A_w^T on the MXU) do not pay here: a two-tap gather needs no
+// tensor cores, so wgmma and TMA do not apply. A simple, right kernel
+// first; its time against the byte bound is in PERF.md.
+//
+// Rounding: every float step uses the explicit round-to-nearest intrinsics
+// (no FMA contraction; the file is also built with -fmad=false) so that the
+// source coordinate, and hence which tap is chosen at exact boundaries,
+// matches the twin and the JAX kernel bit for bit. The coordinate divides
+// first (src / n_new), then multiplies; the result divides by 255, never
+// multiplies by its reciprocal.
+//
+// Interface: a plain C function (loaded with ctypes). It launches on the
+// given stream, allocates nothing, and returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMetaRows = 10;   // win, y0, x0, h, w, new_h, new_w, pt, pl, border
+constexpr int kRowsPerBlock = 16;
+constexpr int kThreads = 256;
+
+struct Taps {
+  int i0;     // absolute source index of the first tap
+  int i1;     // absolute source index of the second tap
+  float w0;
+  float w1;
+};
+
+// One axis: output coordinate q -> two source taps inside the ROI's own
+// extent [0, src) placed at `origin` in a pixel plane of `limit` entries.
+__device__ __forceinline__ Taps axis_taps(int q, int pad, float ratio,
+                                          int src, int origin, int limit) {
+  const float srcf = static_cast<float>(src);
+  float f = __fadd_rn(
+      __fmul_rn(__fadd_rn(__fsub_rn(static_cast<float>(q),
+                                    static_cast<float>(pad)), 0.5f),
+                ratio),
+      -0.5f);
+  f = fminf(fmaxf(f, 0.0f), __fsub_rn(srcf, 1.0f));
+  const float t0 = floorf(f);
+  const float t1 = __fadd_rn(t0, 1.0f);
+  Taps t;
+  int i0 = static_cast<int>(t0);
+  int i1;
+  t.w0 = __fsub_rn(1.0f, __fsub_rn(f, t0));
+  if (t1 < srcf) {
+    i1 = i0 + 1;
+    t.w1 = __fsub_rn(1.0f, __fsub_rn(t1, f));
+  } else {
+    i1 = src - 1;
+    t.w1 = 0.0f;
+  }
+  // metadata that points outside the plane is clamped, never read past it
+  t.i0 = min(max(origin + i0, 0), limit - 1);
+  t.i1 = min(max(origin + i1, 0), limit - 1);
+  return t;
+}
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(kThreads)
+resize_pad_kernel(const uint8_t* __restrict__ pix, int n_win, int win_h,
+                  int win_w, const int32_t* __restrict__ meta, int n_slots,
+                  int target_h, int target_w, int num_chans,
+                  OutT* __restrict__ out) {
+  extern __shared__ unsigned char smem_raw[];
+  Taps* col = reinterpret_cast<Taps*>(smem_raw);  // [target_w]
+  Taps* row = col + target_w;                     // [kRowsPerBlock]
+  __shared__ int m[kMetaRows];
+
+  const int slot = blockIdx.x;
+  const int row_begin = blockIdx.y * kRowsPerBlock;
+  const int rows = min(kRowsPerBlock, target_h - row_begin);
+  if (threadIdx.x < kMetaRows) {
+    m[threadIdx.x] = meta[threadIdx.x * n_slots + slot];
+  }
+  __syncthreads();
+  const int win = min(max(m[0], 0), n_win - 1);
+  const int y0 = m[1], x0 = m[2], h = m[3], w = m[4];
+  const int nh = m[5], nw = m[6], pt = m[7], pl = m[8];
+  const float border = static_cast<float>(m[9]);
+  const float ratio_y = __fdiv_rn(static_cast<float>(h), static_cast<float>(nh));
+  const float ratio_x = __fdiv_rn(static_cast<float>(w), static_cast<float>(nw));
+
+  for (int j = threadIdx.x; j < target_w; j += blockDim.x) {
+    col[j] = axis_taps(j, pl, ratio_x, w, x0, win_w);
+  }
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    row[r] = axis_taps(row_begin + r, pt, ratio_y, h, y0, win_h);
+  }
+  __syncthreads();
+
+  const uint8_t* src = pix + static_cast<size_t>(win) * win_h * win_w;
+  OutT* dst = out + (static_cast<size_t>(slot) * target_h + row_begin) *
+                        target_w * num_chans;
+  const int n_px = rows * target_w;
+  for (int p = threadIdx.x; p < n_px; p += blockDim.x) {
+    const int r = p / target_w;
+    const int j = p - r * target_w;
+    const int i = row_begin + r;
+    float v = border;
+    if (i >= pt && i < pt + nh && j >= pl && j < pl + nw) {
+      const Taps ty = row[r];
+      const Taps tx = col[j];
+      const uint8_t* r0 = src + static_cast<size_t>(ty.i0) * win_w;
+      const uint8_t* r1 = src + static_cast<size_t>(ty.i1) * win_w;
+      const float p00 = r0[tx.i0], p01 = r0[tx.i1];
+      const float p10 = r1[tx.i0], p11 = r1[tx.i1];
+      // vertical blend at both source columns, then horizontal (the
+      // order of the einsum's contractions, repeated by the twin)
+      const float left = __fadd_rn(__fmul_rn(ty.w0, p00), __fmul_rn(ty.w1, p10));
+      const float right = __fadd_rn(__fmul_rn(ty.w0, p01), __fmul_rn(ty.w1, p11));
+      v = __fadd_rn(__fmul_rn(tx.w0, left), __fmul_rn(tx.w1, right));
+    }
+    v = __fdiv_rn(v, 255.0f);
+    OutT* o = dst + static_cast<size_t>(p) * num_chans;
+    for (int c = 0; c < num_chans; ++c) store(o + c, v);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// pix: uint8 (n_win, win_h, win_w); meta: int32 (10, n_slots);
+// out: (n_slots, target_h, target_w, num_chans) float32 (out_bf16 == 0) or
+// bfloat16 (out_bf16 == 1). Returns cudaGetLastError() after the launch.
+int resize_pad_launch(const void* pix, int n_win, int win_h, int win_w,
+                      const void* meta, int n_slots, int target_h,
+                      int target_w, int num_chans, int out_bf16, void* out,
+                      void* stream) {
+  if (n_slots == 0) return static_cast<int>(cudaSuccess);
+  const dim3 grid(n_slots, (target_h + kRowsPerBlock - 1) / kRowsPerBlock);
+  const size_t smem = sizeof(Taps) * (target_w + kRowsPerBlock);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* p = static_cast<const uint8_t*>(pix);
+  const int32_t* m = static_cast<const int32_t*>(meta);
+  if (out_bf16) {
+    resize_pad_kernel<__nv_bfloat16><<<grid, kThreads, smem, s>>>(
+        p, n_win, win_h, win_w, m, n_slots, target_h, target_w, num_chans,
+        static_cast<__nv_bfloat16*>(out));
+  } else {
+    resize_pad_kernel<float><<<grid, kThreads, smem, s>>>(
+        p, n_win, win_h, win_w, m, n_slots, target_h, target_w, num_chans,
+        static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"
