@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``sykepic_tpu_torch``) on one NVIDIA
-card: the ``prob`` main path at full width, and every kernel on it held
-against its plain PyTorch version.
+card: the ``prob`` main path and the fused ``pipeline --device-features``
+path at full width, and every kernel on them held against its plain PyTorch
+version.
 
 Run from the root of a checkout, on a machine with a card::
 
@@ -34,6 +35,27 @@ Phases, one JSON object per line on stdout:
    bfloat16, and the e2e runs in bfloat16 through the same `prob` code.
 4. ``profile``: a warm float32 stream under ``torch.profiler``: device
    time by kernel, K1's share of it, and the device's busy share.
+5. ``kernel_flood``: K2 against its plain version, exact (bool masks and
+   step counts), on the seven flood inputs of the first fused dispatch of
+   the workload (taken by running the port's feature program on that
+   canvas), random masks at 2048x48x96 with border seeds, the ring
+   hole-fill, caps 1, 2 and 5, a 2x1024x1400 canvas past the shared-memory
+   budget (the global form), and the global form forced at 64x48x96. Each
+   case prints ms (median of 20 CUDA-event launches), steps, the plain ms
+   and the bound: the larger of the byte time (seed + within + output,
+   3 B a pixel, at 3.35 TB/s) and the operation time (the steps these
+   inputs need x pixels x the form's logic operations a pixel, at the
+   card's int32 rate).
+6. ``pipeline``: the same workload through ``python -m sykepic_tpu_torch
+   pipeline ... -b 2048 --device-features`` (float32, codec on), cold and
+   warm. Every ``.prob.csv`` and ``.feat.csv`` is checked; K1's launches
+   must equal the fused dispatches and K2's shared-memory launches 7x the
+   dispatches whose canvas fits that form. Then the fused on-chip rate,
+   peak device memory, and a warm stream under ``torch.profiler``.
+7. ``pipeline_card_vs_cpu``: the fused pass on the 202-ROI comparison set,
+   the port on the CPU against the card: probabilities within 1.2e-5, and
+   over the ROIs with area >= 50 at least 90% with area, major and minor
+   identical (area equal, axes within 1e-5 relative).
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -67,6 +89,15 @@ MODEL_SRC = REPO / "tests/model/resnet18_ref"
 MEMORY_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 K1_OPS_PER_PIXEL = 10  # 6 mul/add of the two-tap blends, 3 index ops, /255
+# int32 logic: 64 INT32 lanes an SM (half the 128 float32 lanes), 132 SMs,
+# 1.98 GHz boost -- a quarter of the float32 figure, which counts an FMA as
+# two operations.
+INT32_OPS_PER_S = 16.7e12
+# K2's logic operations a pixel and a step. Shared-memory form: per 32-bit
+# word of 32 pixels, 6 ORs of the three column words, 4 shifts and 4 ORs
+# across the row, the AND with `within` and the compare with the old word.
+# Global-memory form: 9 neighbour tests, the AND, the compare and the store.
+K2_OPS_PER_PIXEL = {"shared": 16 / 32, "global": 12}
 
 N_ROIS = 20_000
 PER_SAMPLE = 500
@@ -264,6 +295,21 @@ def time_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, word: str, reps: int) -> float:
+    """Device time a call of ``fn`` spends in kernels whose name holds
+    ``word``, from torch.profiler over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if word in e.key) / 1e3 / reps
 
 
 def k1_case(name, pixels: np.ndarray, meta: np.ndarray, target=180) -> dict:
@@ -495,34 +541,352 @@ def phase_profile(model_dir: Path, samples) -> None:
     """Where the device time of a warm float32 stream goes: CUDA kernel
     time by name under torch.profiler, K1's share, and the device's busy
     share of the wall clock (the profiler slows the host side)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from sykepic_tpu_torch.compute.engine import Classifier
 
     clf = Classifier(model_dir, batch_size=BATCH)
-    for _ in clf.classify_blocks(sample_blocks(samples)):  # warm
-        pass
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def stream():
         for _ in clf.classify_blocks(sample_blocks(samples)):
             pass
+
+    stream()  # warm
+    torch.cuda.synchronize()
+    emit({"phase": "profile", **device_profile(stream)})
+
+
+def first_fused_dispatch(model_dir: Path, samples):
+    """The first (batch, meta) of the fused stream over ``samples``, as
+    ``classify_and_feature_rois`` packs it with ``-b BATCH``."""
+    from sykepic_tpu_torch.compute.engine import Classifier
+
+    gen = Classifier(model_dir, batch_size=BATCH)._prepared_fused(
+        sample_blocks(samples))
+    try:
+        return next(gen)
+    finally:
+        gen.close()
+
+
+def capture_floods(canvas, heights, widths):
+    """The (seed, within, cap) of each flood the feature program runs on
+    one canvas batch, in order: its own steps, recorded at ``_flood``."""
+    from sykepic_tpu_torch.ops import features_device as fd
+
+    calls = []
+    original = fd._flood
+
+    def record(seed, within, iterations):
+        calls.append((seed.contiguous().clone(), within.contiguous().clone(),
+                      int(iterations)))
+        return original(seed, within, iterations)
+
+    fd._flood = record
+    try:
+        with torch.inference_mode():
+            fd.device_features(canvas, heights, widths)
+    finally:
+        fd._flood = original
+    return calls
+
+
+def k2_case(name, seed, within, cap, form=None) -> dict:
+    """K2 against its plain version on one input: exact masks and steps."""
+    from sykepic_tpu_torch.ops import flood
+
+    b, h, w = seed.shape
+    before = (flood.launches, flood.global_launches)
+    got, steps = flood.flood(seed, within, cap, return_steps=True, form=form)
+    torch.cuda.synchronize()
+    used = "shared" if flood.launches > before[0] else "global"
+    check(flood.launches + flood.global_launches > sum(before),
+          f"K2 {name}: no launch")
+    check(form is None or used == form, f"K2 {name}: ran the {used} form")
+    plain, plain_steps = flood.flood_plain(seed, within, cap,
+                                           return_steps=True)
+    check(got.dtype == torch.bool and got.shape == seed.shape,
+          f"K2 {name}: {got.dtype} {tuple(got.shape)}")
+    diff = int((got != plain).sum())
+    check(diff == 0, f"K2 {name}: {diff} pixels differ from the plain version")
+    check(torch.equal(steps, plain_steps), f"K2 {name}: step counts differ")
+    pixels = b * h * w
+    bytes_s = 3 * pixels / MEMORY_BYTES_PER_S
+    ops_s = (int(steps.to(torch.int64).sum()) * h * w
+             * K2_OPS_PER_PIXEL[used] / INT32_OPS_PER_S)
+    out = {"phase": "kernel_flood", "case": name, "shape": [b, h, w],
+           "cap": cap, "form": used, "max_abs_err": float(diff),
+           "steps_max": int(steps.max()) if b else 0,
+           "steps_mean": float(steps.float().mean()) if b else 0.0,
+           "ms": time_ms(lambda: flood.flood(seed, within, cap, form=form),
+                         TIMED_LAUNCHES),
+           # the kernels' own device time, without the wrapper's host time
+           "device_ms": device_ms(
+               lambda: flood.flood(seed, within, cap, form=form), "flood_",
+               TIMED_LAUNCHES),
+           "plain_ms": time_ms(lambda: flood.flood_plain(seed, within, cap),
+                               TIMED_PLAIN),
+           "bytes_ms": 1e3 * bytes_s, "ops_ms": 1e3 * ops_s,
+           "bound_ms": 1e3 * max(bytes_s, ops_s),
+           "bound_by": "bytes" if bytes_s >= ops_s else "operations"}
+    emit(out)
+    return out
+
+
+def phase_flood(model_dir: Path, samples) -> dict:
+    """K2 on every case; returns the sums over the seven floods of the
+    first fused dispatch (the main path's K2 work for one dispatch)."""
+    from sykepic_tpu_torch.ops import flood
+
+    dev = torch.device("cuda")
+    batch, _ = first_fused_dispatch(model_dir, samples)
+    canvas = torch.from_numpy(batch.canvas).to(dev)
+    calls = capture_floods(canvas, torch.from_numpy(batch.heights).to(dev),
+                           torch.from_numpy(batch.widths).to(dev))
+    check(len(calls) == 7, f"the feature program ran {len(calls)} floods")
+    names = ("hysteresis", "fill_holes_1", "fill_holes_2", "blob_1",
+             "blob_2", "blob_3", "blob_4")
+    main_cases = [k2_case(f"first_dispatch_{n}", *call)
+                  for n, call in zip(names, calls)]
+
+    rng = np.random.default_rng(3)
+
+    def random_case(b, h, w, p=0.5):
+        within = rng.uniform(size=(b, h, w)) < p
+        seed = np.zeros_like(within)
+        seed[:, 0, :] = within[:, 0, :]  # border seeds, as fill_holes makes
+        seed[:, -1, :] = within[:, -1, :]
+        seed[:, :, 0] = within[:, :, 0]
+        seed[:, :, -1] = within[:, :, -1]
+        return (torch.from_numpy(seed).to(dev),
+                torch.from_numpy(within).to(dev))
+
+    s, m = random_case(2048, 48, 96)
+    k2_case("random_2048x48x96", s, m, 48 * 96)
+    for cap in (1, 2, 5):
+        k2_case(f"random_2048x48x96_cap{cap}", s, m, cap)
+    yy, xx = np.mgrid[0:40, 0:40]
+    r = np.hypot(yy - 20, xx - 20)
+    free = ~((r < 15) & (r > 8))[None]
+    ring_seed = np.zeros_like(free)
+    ring_seed[:, 0, :] = ring_seed[:, -1, :] = True
+    ring_seed[:, :, 0] = ring_seed[:, :, -1] = True
+    ring = k2_case("ring_1x40x40", torch.from_numpy(ring_seed & free).to(dev),
+                   torch.from_numpy(free).to(dev), 1600)
+    check(ring["form"] == "shared", "the ring ran the global form")
+    s, m = random_case(2, 1024, 1400, p=0.6)
+    check(flood.shared_bytes(1024, 1400) > flood.smem_limit(dev),
+          "1024x1400 fits shared memory")
+    k2_case("random_2x1024x1400", s, m, 1024 * 1400)
+    s, m = random_case(64, 48, 96)
+    k2_case("random_64x48x96_global", s, m, 48 * 96, form="global")
+
+    # the seven floods as one piece of work: its bound is the larger of
+    # their summed byte time and their summed operation time
+    total = {k: sum(c[k] for c in main_cases)
+             for k in ("ms", "device_ms", "plain_ms", "bytes_ms", "ops_ms")}
+    total["bound_ms"] = max(total["bytes_ms"], total["ops_ms"])
+    total["bound_by"] = ("bytes" if total["bytes_ms"] >= total["ops_ms"]
+                         else "operations")
+    total["max_abs_err"] = max(c["max_abs_err"] for c in main_cases)
+    emit({"phase": "kernel_flood", "case": "first_dispatch_all_seven",
+          "shape": main_cases[0]["shape"], **total})
+    return total
+
+
+def check_feat_csvs(out_dir: Path, counts: dict) -> None:
+    from sykepic_tpu_torch.compute import feature_native
+    from sykepic_tpu_torch.utils import files
+
+    for sample, n in counts.items():
+        path = files.sample_csv_path(sample, out_dir, ".feat")
+        lines = path.read_text().splitlines()
+        check(lines[0] == "# version=tpu-dev-v1", f"{path.name}: version")
+        check(lines[1].startswith("# volume_ml=")
+              and float(lines[1].split("=")[1]) > 0, f"{path.name}: volume")
+        check(lines[2] == feature_native.CSV_COLUMNS, f"{path.name}: columns")
+        check(len(lines) == n + 3, f"{path.name}: {len(lines) - 3} rows != {n}")
+        cells = [line.split(",") for line in lines[3:]]
+        check(all(c[4].isdigit() for c in cells),
+              f"{path.name}: area is not an integer >= 0")
+        rows = np.array([[float(v) for v in c] for c in cells])
+        check(np.isfinite(rows).all(), f"{path.name}: non-finite features")
+        check((np.diff(rows[:, 0]) > 0).all(), f"{path.name}: not roi-sorted")
+
+
+def fused_shapes(samples):
+    """Canvas shapes of the fused stream's dispatches with ``-b BATCH``:
+    the same packing pass, counted on the host."""
+    from sykepic_tpu_torch.ingest import pack
+
+    return [b.canvas.shape for b in pack.pack_rois(
+        pack.roi_items(sample_blocks(samples)), batch_size=BATCH,
+        buckets=None, pre_shrink_to=None, consolidate_tails=False)]
+
+
+def device_profile(run) -> dict:
+    """Device time by kernel while ``run()`` goes: CUDA activity only under
+    torch.profiler, summed from the raw trace events (the fused stream
+    makes hundreds of thousands of kernels; ``key_averages`` would spend
+    minutes building its tree of them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if e.device_type == cuda and e.self_device_time_total > 0]
-    busy_ms = sum(ms for _, ms, _ in kernels)
-    k1_ms = sum(ms for key, ms, _ in kernels if "resize_pad" in key)
-    top = sorted(kernels, key=lambda k: -k[1])[:8]
-    emit({"phase": "profile", "wall_ms": 1e3 * wall, "device_busy_ms": busy_ms,
-          "device_busy_share": busy_ms / (1e3 * wall) if wall else None,
-          "k1_ms": k1_ms, "k1_share_of_device": k1_ms / busy_ms
-          if busy_ms else None, "kernels_seen": len(kernels),
-          "top": [{"kernel": key[:80], "ms": ms, "calls": n}
-                  for key, ms, n in top]})
+    by_name: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
+            continue
+        ms = (e.duration_ns() / 1e6 if hasattr(e, "duration_ns")
+              else e.duration_us() / 1e3)
+        acc = by_name.setdefault(e.name(), [0.0, 0])
+        acc[0] += ms
+        acc[1] += 1
+    busy_ms = sum(ms for ms, _ in by_name.values())
+
+    def share(word):
+        ms = sum(v[0] for key, v in by_name.items() if word in key)
+        return ms, ms / busy_ms if busy_ms else None
+
+    k1_ms, k1_share = share("resize_pad")
+    k2_ms, k2_share = share("flood_")
+    # device time by kind, the first matching word of each kernel's name
+    kinds = (("K1", ("resize_pad",)), ("K2", ("flood_",)),
+             ("cuFFT", ("fft",)),
+             ("cuDNN/cuBLAS", ("xmma", "convolve", "cudnn", "gemm")),
+             ("max_pool", ("max_pool",)), ("reduce", ("reduce",)),
+             ("sort", ("sort", "radix")), ("elementwise", ("elementwise",)),
+             ("copy/fill", ("Memcpy", "Memset", "copy")))
+    by_kind = {k: 0.0 for k, _ in kinds + (("other", ()),)}
+    for key, (ms, _) in by_name.items():
+        kind = next((k for k, words in kinds
+                     if any(w in key for w in words)), "other")
+        by_kind[kind] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"wall_ms": 1e3 * wall, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / (1e3 * wall) if wall else None,
+            "device_events": sum(n for _, n in by_name.values()),
+            "k1_ms": k1_ms, "k1_share_of_device": k1_share,
+            "k2_ms": k2_ms, "k2_share_of_device": k2_share,
+            "device_ms_by_kind": by_kind,
+            "kernels_seen": len(by_name),
+            "top": [{"kernel": key[:80], "ms": v[0], "calls": v[1]}
+                    for key, v in top]}
+
+
+def phase_pipeline(model_dir: Path, raw: Path, counts: dict) -> dict:
+    """The fused path through the CLI; returns K1's and K2's launches in
+    the first run."""
+    from sykepic_tpu_torch.__main__ import main
+    from sykepic_tpu_torch.compute.engine import Classifier
+    from sykepic_tpu_torch.models import checkpoint
+    from sykepic_tpu_torch.ops import flood, resize_pad
+
+    classes = checkpoint.read_class_names(model_dir)
+    samples = list(counts)
+    n_rois = sum(counts.values())
+    shapes = fused_shapes(samples)
+    limit = flood.smem_limit(torch.device("cuda"))
+    fits = sum(flood.shared_bytes(h, w) <= limit for _, h, w in shapes)
+    out = WORK / "out_fused"
+    runs = {}
+    for name, force in (("fused_codec_on", False),
+                        ("fused_codec_on_warm", True)):
+        resize_pad.launches = flood.launches = flood.global_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        main(["pipeline", "-r", str(raw), "-m", str(model_dir), "-o",
+              str(out), "-b", str(BATCH), "--device-features"]
+             + (["-f"] if force else []))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"k1": resize_pad.launches, "k2_shared": flood.launches,
+                    "k2_global": flood.global_launches}
+        check_csvs(out, counts, classes)
+        check_feat_csvs(out, counts)
+        check(launches["k1"] == len(shapes),
+              f"{name}: K1 launched {launches['k1']} times for "
+              f"{len(shapes)} dispatches")
+        check(launches["k2_shared"] == 7 * fits,
+              f"{name}: K2 launched {launches['k2_shared']} times in shared "
+              f"memory for {fits} dispatches that fit it")
+        runs[name] = {"seconds": seconds, "rois_per_s": n_rois / seconds,
+                      "dispatches": len(shapes),
+                      "dispatches_fitting_shared": fits,
+                      "launches": launches,
+                      "peak_device_mib": torch.cuda.max_memory_allocated()
+                      / 2**20}
+    emit({"phase": "pipeline", "rois": n_rois, "samples": len(samples),
+          "batch": BATCH, "canvas_shapes": len(set(shapes)), "runs": runs})
+
+    clf = Classifier(model_dir, batch_size=BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    # every dispatch of the stream resident: the same work as the e2e runs
+    n, seconds = clf.fused_onchip_rate(sample_blocks(samples), repeats=1,
+                                       max_batches=len(shapes))
+    emit({"phase": "pipeline_onchip", "rois": n, "dispatches": len(shapes),
+          "seconds_per_pass": seconds, "rois_per_s": n / seconds,
+          "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20})
+    subset = samples[:11]  # the fixture and 10 x 500 ROIs
+
+    def stream():
+        for _ in clf.classify_and_feature_rois(sample_blocks(subset)):
+            pass
+
+    stream()  # warm
+    torch.cuda.synchronize()
+    emit({"phase": "pipeline_profile",
+          "profile_rois": sum(counts[s] for s in subset),
+          **device_profile(stream)})
+    return runs["fused_codec_on"]["launches"]
+
+
+def fused(clf, paths):
+    """(sample idx, roi id) -> (probability row, features), through
+    classify_and_feature_rois."""
+    from sykepic_tpu_torch.ingest import ifcb
+
+    tagged = [(s, rid, img) for s, p in enumerate(paths)
+              for rid, img in ifcb.read_sample(p).images()]
+    return {(s, r): (p, np.array(f))
+            for s, r, p, f in clf.classify_and_feature_rois(tagged)}
+
+
+def phase_pipeline_compare(model_dir: Path) -> None:
+    """The fused pass on the comparison set: the port on the CPU against
+    the port on the card."""
+    from sykepic_tpu_torch.compute.engine import Classifier
+    from sykepic_tpu_torch.utils import files
+
+    small = files.list_sample_paths(WORK / "raw_compare")
+    cpu = fused(Classifier(model_dir, batch_size=BATCH, device="cpu"), small)
+    card = fused(Classifier(model_dir, batch_size=BATCH), small)
+    check(cpu.keys() == card.keys(), "ROI sets differ")
+    keys = sorted(cpu)
+    pc = np.stack([cpu[k][0] for k in keys])
+    pg = np.stack([card[k][0] for k in keys])
+    fc = np.stack([cpu[k][1] for k in keys])  # area, biovolume, major, minor
+    fg = np.stack([card[k][1] for k in keys])
+    check(np.isfinite(fg).all(), "non-finite features on the card")
+    dp = float(np.abs(pc - pg).max())
+    check(dp <= PROB_BOUND, f"fused card vs CPU: max |dp| {dp}")
+    big = fc[:, 0] >= 50
+    c, g = fc[big], fg[big]
+    same = ((c[:, 0] == g[:, 0]) & (np.abs(g[:, 2] / c[:, 2] - 1) <= 1e-5)
+            & (np.abs(g[:, 3] / c[:, 3] - 1) <= 1e-5))
+    rel = np.abs(g / np.where(c == 0, 1, c) - 1)[~same]
+    share = float(same.mean()) if len(c) else 1.0
+    emit({"phase": "pipeline_card_vs_cpu", "rois": len(keys),
+          "max_abs_dp": dp, "rois_area_ge_50": int(big.sum()),
+          "identical_share": share,
+          "bit_identical_share": float((c == g).all(axis=1).mean())
+          if len(c) else 1.0,
+          "max_rel_diff_of_the_rest": {
+              k: float(rel[:, i].max()) if len(rel) else 0.0
+              for i, k in enumerate(("area", "biovolume", "major", "minor"))}})
+    check(share >= 0.9, f"only {share:.1%} of ROIs have identical features")
 
 
 def main() -> int:
@@ -543,14 +907,31 @@ def main() -> int:
     if WORK.exists():
         shutil.rmtree(WORK)
     t0 = time.perf_counter()
-    phase_env(smi)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    timed("env", phase_env, smi)
     model_dir = build_model_dir(WORK)
     raw = WORK / "raw"
-    counts = build_raw(raw, N_ROIS, seed=42, start=datetime(2018, 7, 12))
-    main_case = phase_kernel(model_dir, list(counts))
-    launches = phase_prob(model_dir, raw, counts)
+    counts = timed("workload", build_raw, raw, N_ROIS, 42,
+                   datetime(2018, 7, 12))
+    main_case = timed("kernel_resize_pad", phase_kernel, model_dir,
+                      list(counts))
+    launches = timed("prob", phase_prob, model_dir, raw, counts)
     check(launches > 0, "the main path never launched K1")
-    phase_profile(model_dir, list(counts))
+    timed("profile", phase_profile, model_dir, list(counts))
+    k2 = timed("kernel_flood", phase_flood, model_dir, list(counts))
+    fused_launches = timed("pipeline", phase_pipeline, model_dir, raw, counts)
+    check(fused_launches["k1"] > 0, "the fused path never launched K1")
+    check(fused_launches["k2_shared"] + fused_launches["k2_global"] > 0,
+          "the fused path never launched K2")
+    timed("pipeline_card_vs_cpu", phase_pipeline_compare, model_dir)
+    emit({"phase_seconds": seconds})
     k = main_case["f32"]
     emit({"kernels": [{
         "name": "resize_pad",
@@ -558,11 +939,28 @@ def main() -> int:
         "source": "sykepic_tpu_torch/csrc/resize_pad.cu",
         "replaces": "sykepic_tpu/ops/pallas_preprocess.py:114",
         "launches": launches,
+        "pipeline_launches": fused_launches["k1"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
+        "library_ms": None,
+    }, {
+        # ms, plain_ms and bound_ms: the seven floods of the first fused
+        # dispatch, summed; launches: both forms in the fused run
+        "name": "flood",
+        "route": "cuda",
+        "source": "sykepic_tpu_torch/csrc/flood.cu",
+        "replaces": "sykepic_tpu/ops/pallas_flood.py:102",
+        "launches": fused_launches["k2_shared"] + fused_launches["k2_global"],
+        "global_form_launches": fused_launches["k2_global"],
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"],
+        "device_ms": k2["device_ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
         "library_ms": None,
     }], "seconds": time.perf_counter() - t0})
     print(smi, flush=True)

@@ -12,9 +12,12 @@ Layout (the JAX package's layer map):
 - :mod:`sykepic_tpu_torch.ingest`  -- IFCB raw decoding + ROI packing
   (:mod:`sykepic_tpu_torch.ingest.native` holds the C++ host helpers)
 - :mod:`sykepic_tpu_torch.ops`     -- eval preprocessing (the hand-written
-  resize/pad kernel in ``csrc/resize_pad.cu``) and the wire decoder
+  resize/pad kernel in ``csrc/resize_pad.cu``), the on-device geometry
+  features (the hand-written flood kernel in ``csrc/flood.cu``) and the wire
+  decoder
 - :mod:`sykepic_tpu_torch.models`  -- ResNet family + checkpoint loading
-- :mod:`sykepic_tpu_torch.compute` -- the inference engine and ``prob``
+- :mod:`sykepic_tpu_torch.compute` -- the inference engine, ``prob`` and
+  the fused ``pipeline --device-features``
 - :mod:`sykepic_tpu_torch.device`  -- device resolution (cuda by default)
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``.

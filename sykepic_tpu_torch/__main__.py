@@ -1,13 +1,18 @@
 """CLI entry point: ``python -m sykepic_tpu_torch`` (the port of
 ``sykepic_tpu/__main__.py``).
 
-This slice of the port carries the ``prob`` sub-command, with the JAX
+The port carries the ``prob`` and ``pipeline`` sub-commands, with the JAX
 package's argument surface plus ``--device``::
 
     python -m sykepic_tpu_torch prob -r DIR -m MODEL -o OUT [-b N] [-f]
                                      [--device cuda|cpu]
+    python -m sykepic_tpu_torch pipeline -r DIR -m MODEL -o OUT
+                                     [--feat-out DIR] [-b N] [-w N] [-f]
+                                     --device-features [--device cuda|cpu]
 
-The other sub-commands are ROADMAP slices 2, 3 and 5.
+``pipeline`` runs only with ``--device-features`` (the fused on-device
+pass); its host-thread mode and the other sub-commands are ROADMAP slices
+3 and 5.
 """
 
 from __future__ import annotations
@@ -76,14 +81,67 @@ def main(argv=None):
         help="cuda (default; fails without a card) or cpu",
     )
 
+    # pipeline (fused prob + feat in one pass)
+    pipeline_parser = subparsers.add_parser(
+        "pipeline",
+        description="Fused single pass: probabilities AND features from one "
+        "decode (--device-features: both computed on the device)",
+    )
+    pipeline_parser.set_defaults(func=_pipeline)
+    pipeline_raw = pipeline_parser.add_mutually_exclusive_group(required=True)
+    pipeline_raw.add_argument(
+        "-r", "--raw", metavar="DIR", help="Root directory of raw IFCB data"
+    )
+    pipeline_raw.add_argument(
+        "-s", "--samples", nargs="+", metavar="SAMPLE PATH",
+        help="One or more sample paths (raw file without suffix)",
+    )
+    pipeline_parser.add_argument("-m", "--model", required=True,
+                                 help="Model directory")
+    pipeline_parser.add_argument("-o", "--out", required=True,
+                                 help="Probability output directory")
+    pipeline_parser.add_argument(
+        "--feat-out", metavar="DIR",
+        help="Feature output directory (defaults to --out)",
+    )
+    pipeline_parser.add_argument(
+        "-b", "--batch-size", type=int, default=256, metavar="INT",
+        help="Default is 256",
+    )
+    pipeline_parser.add_argument(
+        "-w", "--num-workers", type=int, default=8, metavar="INT",
+        help="Feature-extraction threads of the host-thread mode (not "
+        "ported yet), default is 8",
+    )
+    pipeline_parser.add_argument(
+        "-f", "--force", action="store_true",
+        help="Force overwrite of previous outputs",
+    )
+    pipeline_parser.add_argument(
+        "--device-features", action="store_true",
+        help="Extract geometry features on the device in the classification "
+        "batch stream (chamfer-EDT biovolume; version tpu-dev-v1); the only "
+        "mode ported so far",
+    )
+    pipeline_parser.add_argument(
+        "--device", default="cuda",
+        help="cuda (default; fails without a card) or cpu",
+    )
+
     args = parser.parse_args(argv)
-    args.func(args)
+    return args.func(args)
 
 
 def _prob(args):
     from .compute import probability
 
     probability.call(args)
+
+
+def _pipeline(args):
+    from .compute import pipeline
+
+    return pipeline.call(args)
 
 
 if __name__ == "__main__":

@@ -1,1 +1,1 @@
-"""Inference: the engine and the ``prob`` command."""
+"""Inference: the engine, the ``prob`` command and the fused pipeline."""

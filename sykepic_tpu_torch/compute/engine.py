@@ -15,6 +15,12 @@ Both packings (shelf windows, the default, and per-ROI slot canvases with
 metadata (:data:`sykepic_tpu_torch.ops.preprocess.META_ROWS`); the kernel
 reads each ROI straight out of the uploaded pixels at its origin.
 
+The fused pass (:meth:`Classifier.classify_and_feature_rois`, the
+``pipeline --device-features`` path) packs slots without pre-shrink and runs
+the same dispatch plus the geometry feature program
+(:mod:`sykepic_tpu_torch.ops.features_device`, whose floods are K2) on the
+one device copy of each canvas.
+
 The knobs and their defaults are the JAX package's, because they set the
 outputs: ``SYKEPIC_PACKING``, ``SYKEPIC_WIRE_CODEC``,
 ``SYKEPIC_D2H_COMPACT``, ``SYKEPIC_BUCKETS`` and the depths of
@@ -39,10 +45,10 @@ import torch
 from .. import device as device_mod
 from ..ingest import pack, shelf, wirecodec
 from ..models import checkpoint
-from ..ops import preprocess, wiredecode
+from ..ops import features_device, preprocess, wiredecode
 from ..train import config as train_config
 from ..utils import logger, profiling
-from ..utils.depths import PIPELINE_DEPTH
+from ..utils.depths import FUSED_PIPELINE_DEPTH, PIPELINE_DEPTH
 
 SOFTMAX_EXP = 1.3
 
@@ -284,17 +290,22 @@ class Classifier:
 
     # -- streams -------------------------------------------------------------
 
-    def _start_download(self, result: torch.Tensor):
-        """Start the D2H copy of a dispatch's rows into pinned host memory
-        and record an event behind it; the drain thread waits on the event
-        (``(host tensor, event or None)``)."""
-        if self.device.type != "cuda":
-            return result, None
-        host = torch.empty(result.shape, dtype=result.dtype, pin_memory=True)
-        host.copy_(result, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
+    def _start_download(self, *results: torch.Tensor):
+        """Start the D2H copies of a dispatch's results into pinned host
+        memory and record ONE event behind them; the drain side waits on
+        the event. Returns ``(host tensor, event or None)``, with a tuple of
+        host tensors when there are several results."""
+        event = None
+        hosts = results
+        if self.device.type == "cuda":
+            hosts = []
+            for r in results:
+                host = torch.empty(r.shape, dtype=r.dtype, pin_memory=True)
+                host.copy_(r, non_blocking=True)
+                hosts.append(host)
+            event = torch.cuda.Event()
+            event.record()
+        return (hosts[0] if len(hosts) == 1 else tuple(hosts)), event
 
     def _packed(self, tagged_rois):
         """The batches of the classify stream: shelf windows or slot
@@ -493,13 +504,115 @@ class Classifier:
             self._sync()
         return n_rois, (time.perf_counter() - t0) / max(repeats, 1)
 
-    def precompile(self, canvas_shapes) -> int:
+    def _prepared_fused(self, tagged_rois):
+        """The slot-packed stream of the fused classify+features pass, with
+        host metadata from a producer thread: no pre-shrink (area and
+        biovolume are in original pixels) and no tail consolidation (moving
+        a ROI to a bigger canvas changes its FFT window, so its features
+        would depend on the stream). Slots whatever ``SYKEPIC_PACKING``
+        says, as in JAX."""
+        gen = pack.pack_rois(
+            pack.roi_items(tagged_rois), batch_size=self.batch_size,
+            buckets=self.buckets, batch_multiple=self._batch_multiple,
+            pre_shrink_to=None, compute_modes=self.spec.border == "mode",
+            consolidate_tails=False)
+
+        def meta_fn(batch):
+            if self.wire_codec:
+                self._encode_wire(batch)
+            return self._host_meta(batch)
+
+        return self._produce_on_thread(gen, meta_fn, "sykepic-fused")
+
+    def _dispatch_fused(self, batch, meta):
+        """Start both programs of one fused dispatch on one device copy of
+        the canvas: K1 + the network, and the feature program. Returns the
+        two device results without waiting for them."""
+        with self.timer.stage("device.dispatch"), torch.inference_mode():
+            # uploaded (or wire-decoded) ONCE, shared by both programs
+            canvas = self._pixels(batch, batch.canvas)
+            probs = self._forward(canvas, self._put(meta))
+            feats = features_device.device_features(
+                canvas, self._put(batch.heights), self._put(batch.widths))
+        return probs, feats
+
+    def classify_and_feature_rois(self, tagged_rois):
+        """The fused on-device pass: each slot-packed batch is classified
+        AND measured (area, biovolume, axes: :mod:`sykepic_tpu_torch.ops.
+        features_device`) on the device from one canvas upload. Yields
+        ``(sample_idx, roi_id, probs_row, (area, biovolume_px, major,
+        minor))``; ROIs of different samples may share a batch.
+
+        Both results of a dispatch start their copy into pinned host memory
+        behind one CUDA event; up to ``FUSED_PIPELINE_DEPTH`` dispatches
+        stay in flight. (The feature program reads a few convergence flags
+        on the host, so a dispatch returns only once the device has
+        reached them.)
+        """
+        in_flight: deque = deque()
+
+        def drain(batch, host, event):
+            n = batch.n_valid
+            with self.timer.stage("device.drain"):
+                if event is not None:
+                    event.synchronize()
+                probs = self._host_rows(host[0], n)
+                feats = host[1][:n].numpy()
+            if batch.wire is not None:  # upload done: pool the payload
+                wirecodec.recycle_payload(batch.wire)
+                batch.wire = None
+            for i in range(n):
+                yield (int(batch.sample_idx[i]), int(batch.roi_ids[i]),
+                       probs[i], tuple(float(v) for v in feats[i]))
+
+        for batch, meta in self._prepared_fused(tagged_rois):
+            host, event = self._start_download(
+                *self._dispatch_fused(batch, meta))
+            in_flight.append((batch, host, event))
+            if len(in_flight) >= FUSED_PIPELINE_DEPTH:
+                yield from drain(*in_flight.popleft())
+        while in_flight:
+            yield from drain(*in_flight.popleft())
+        self.timer.report()
+
+    def fused_onchip_rate(self, tagged_rois, repeats: int = 2,
+                          max_batches: int = 32):
+        """ROIs/s of the fused pass's device work alone: the stream packed
+        as :meth:`classify_and_feature_rois` packs it, every canvas and its
+        metadata made resident first (raw pixels), then both programs of
+        every dispatch back to back ``repeats`` times between two
+        synchronizations. Returns ``(n_rois, seconds_per_pass)``."""
+        args_list = []
+        n_rois = 0
+        for batch, meta in itertools.islice(
+                self._prepared_fused(tagged_rois), max_batches):
+            args_list.append(tuple(self._put(a) for a in (
+                batch.canvas, meta, batch.heights, batch.widths)))
+            n_rois += batch.n_valid
+
+        def one_pass():
+            for canvas, meta, heights, widths in args_list:
+                self._forward(canvas, meta)
+                features_device.device_features(canvas, heights, widths)
+
+        with torch.inference_mode():
+            one_pass()  # warm: cuDNN plans, cuFFT plans, the kernels' build
+            self._sync()
+            t0 = time.perf_counter()
+            for _ in range(repeats):
+                one_pass()
+            self._sync()
+        return n_rois, (time.perf_counter() - t0) / max(repeats, 1)
+
+    def precompile(self, canvas_shapes, fused: bool = False) -> int:
         """Warm up each shape key with one all-zeros dispatch:
         ``(B, Hc, Wc)`` canvas shapes for the slot path, ``(n_windows,
         n_slots)`` pairs for the shelf path (snapped onto the ladders
         pack_shelves emits on). Torch runs eagerly, so nothing compiles;
         the first dispatch of a shape picks its cuDNN algorithms and grows
-        the allocator's pools. Returns the number of dispatches."""
+        the allocator's pools. With ``fused`` each slot shape also runs the
+        feature program once, which builds K2 and makes the cuFFT plans.
+        Returns the number of dispatches."""
         slot_ceil = shelf.floor_slots(self._shelf_slot_cap,
                                       self._batch_multiple)
         keys = {
@@ -547,6 +660,10 @@ class Classifier:
                 wired = np.zeros((b, hc, wc), np.uint8)
                 wired[0, 0, 0] = 200
                 batch.wire = wirecodec.encode(wired, force=True)
-            results.append(self.dispatch_packed(batch))
+            if fused:
+                results.extend(self._dispatch_fused(
+                    batch, self._host_meta(batch)))
+            else:
+                results.append(self.dispatch_packed(batch))
         self._sync()
         return len(results)

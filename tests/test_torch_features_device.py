@@ -1,0 +1,240 @@
+"""``sykepic_tpu_torch.ops.features_device`` against its JAX namesake
+(``sykepic_tpu/ops/features_device.py``) on the CPU, function by function,
+on the same numpy-made inputs. Tolerances:
+
+- exact: ``batched_otsu`` (ties included), the disk morphology and
+  ``fill_holes``, ``chamfer_distance``, ``_masked_median`` (bit-equal
+  order statistics) and ``_largest_blob`` on the same ``(mask, d)``, ties
+  in ``d`` included;
+- ``_replicate_fill`` within 1e-5 relative (3x3 sums of floats in another
+  order);
+- ``phasecong_Mm_batched`` max |diff| <= 2e-3: the port transforms with
+  ``torch.fft``, JAX with its DFT-by-matmul (measured 4.9e-7 on these
+  inputs, on a ~1.0 scale);
+- ``moments_features`` within 1e-6 relative;
+- ``device_features`` on slot-packed batches of 40 ROIs, over the ROIs
+  with area >= 50: area, major and minor identical (area equal, axes
+  within 1e-5 relative, the JAX package's own "exact") on >= 90%, at most
+  2 flips (area off by more than 20%), and biovolume within 1% at the 90th
+  percentile of the others. Phase congruency's rounding difference can
+  move a marginal pixel across the 0.08/0.2 thresholds.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sykepic_tpu.ingest import ifcb
+from sykepic_tpu.ops import features_device as jfd
+from sykepic_tpu_torch.ingest import pack
+from sykepic_tpu_torch.ops import features_device as fd
+from sykepic_tpu_torch.ops import flood
+
+FIXTURE = "tests/data/raw/valid/D20180712T065600_IFCB114"
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def fixture_images():
+    return [img for _, img in ifcb.read_sample(FIXTURE).images()]
+
+
+def resampled(rng, images, h, w):
+    """A fixture ROI resampled (nearest) to (h, w), with seeded noise."""
+    src = images[int(rng.integers(len(images)))]
+    ys = (np.arange(h) * src.shape[0] // h).clip(0, src.shape[0] - 1)
+    xs = (np.arange(w) * src.shape[1] // w).clip(0, src.shape[1] - 1)
+    noise = rng.integers(-3, 4, (h, w))
+    return np.clip(src[np.ix_(ys, xs)].astype(np.int16) + noise, 0,
+                   255).astype(np.uint8)
+
+
+def slot_batch(n, seed, ch=64, cw=128):
+    """(canvas, heights, widths) of ``n`` fixture-texture ROIs in one
+    (ch, cw) slot shape, padding zero."""
+    rng = np.random.default_rng(seed)
+    images = fixture_images()
+    canvas = np.zeros((n, ch, cw), np.uint8)
+    hs = rng.integers(16, ch + 1, n).astype(np.int32)
+    ws = rng.integers(16, cw + 1, n).astype(np.int32)
+    for i in range(n):
+        canvas[i, :hs[i], :ws[i]] = resampled(rng, images, hs[i], ws[i])
+    return canvas, hs, ws
+
+
+def random_masks(seed, b=3, h=28, w=33, p=0.35):
+    rng = np.random.default_rng(seed)
+    mask = rng.uniform(size=(b, h, w)) < p
+    valid = np.ones_like(mask)
+    valid[1, :, 25:] = False  # a slot with padding
+    valid[2, 20:, :] = False
+    return mask & valid, valid
+
+
+def test_otsu_matches_jax_including_ties():
+    canvas, hs, ws = slot_batch(5, 0, 48, 64)
+    # a tie: two grey levels in equal counts keep the between-class
+    # variance flat over [10, 19]; both take the first maximum
+    canvas[4] = 0
+    canvas[4, :20, :30] = np.where(np.arange(30) % 2, 10, 20)
+    hs[4], ws[4] = 20, 30
+    got, valid = fd.batched_otsu(t(canvas), t(hs), t(ws))
+    want, jvalid = jfd.batched_otsu(canvas, hs, ws)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid))
+    assert got.dtype == torch.int32 and int(got[4]) == 10
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_morphology_and_fill_holes_match_jax(seed):
+    mask, valid = random_masks(seed)
+    tm, tv = t(mask), t(valid)
+    np.testing.assert_array_equal(fd.dilate_disk2(tm, tv).numpy(),
+                                  np.asarray(jfd.dilate_disk2(mask, valid)))
+    for it in (1, 2):
+        np.testing.assert_array_equal(
+            fd.erode_disk2(tm, tv, it).numpy(),
+            np.asarray(jfd.erode_disk2(mask, valid, it)))
+    np.testing.assert_array_equal(
+        fd.fill_holes(tm, tv, 28 * 33).numpy(),
+        np.asarray(jfd.fill_holes(mask, valid, 28 * 33)))
+
+
+def test_fill_holes_closes_a_ring():
+    yy, xx = np.mgrid[0:40, 0:40]
+    r = np.hypot(yy - 20, xx - 20)
+    ring = ((r < 15) & (r > 8))[None]
+    valid = np.ones_like(ring)
+    got = fd.fill_holes(t(ring), t(valid), 1600).numpy()
+    np.testing.assert_array_equal(got, np.asarray(
+        jfd.fill_holes(ring, valid, 1600)))
+    assert got[0, 20, 20] and got.sum() == (r < 15).sum()
+
+
+@pytest.mark.parametrize("with_valid", [True, False])
+def test_chamfer_distance_matches_jax(with_valid):
+    mask, valid = random_masks(5, p=0.8)
+    got = fd.chamfer_distance(t(mask), 28 * 33,
+                              valid=t(valid) if with_valid else None)
+    want = jfd.chamfer_distance(mask, 28 * 33,
+                                valid=valid if with_valid else None)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # a cap below convergence stops at the same sweep
+    np.testing.assert_array_equal(
+        fd.chamfer_distance(t(mask), 3).numpy(),
+        np.asarray(jfd.chamfer_distance(mask, 3)))
+
+
+def test_masked_median_bit_equal():
+    rng = np.random.default_rng(6)
+    values = (rng.gamma(2.0, 3.0, (4, 24, 40)) *
+              rng.integers(0, 2, (4, 24, 40))).astype(np.float32)
+    valid = rng.uniform(size=values.shape) < 0.7
+    valid[2] = False  # all invalid: inf, as the sort gives it
+    valid[3] = False
+    valid[3, 0, :7] = True  # odd count
+    got = fd._masked_median(t(values), t(valid)).numpy()
+    want = np.asarray(jfd._masked_median(values, valid))
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert np.isinf(got[2])
+
+
+def test_replicate_fill_matches_jax():
+    canvas, hs, ws = slot_batch(4, 7, 48, 96)
+    valid = np.asarray(jfd.batched_otsu(canvas, hs, ws)[1])
+    x = canvas.astype(np.float32)
+    got = fd._replicate_fill(t(x), t(valid), 96).numpy()
+    want = np.asarray(jfd._replicate_fill(x, valid, 96))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+    np.testing.assert_array_equal(got[valid], x[valid])
+
+
+def test_phasecong_within_2e3_of_jax():
+    canvas, hs, ws = slot_batch(4, 8)
+    valid = np.asarray(jfd.batched_otsu(canvas, hs, ws)[1])
+    x = np.asarray(jfd._replicate_fill(canvas.astype(np.float32), valid,
+                                       128))
+    got = fd.phasecong_Mm_batched(t(x), t(valid)).numpy()
+    want = np.asarray(jfd.phasecong_Mm_batched(x, valid))
+    assert got.shape == want.shape == (4, 64, 128)
+    assert np.abs(got - want).max() <= 2e-3
+
+
+def test_moments_match_jax():
+    mask, _ = random_masks(9, b=4, p=0.2)
+    mask[3] = False  # empty: zeros
+    got = [a.numpy() for a in fd.moments_features(t(mask))]
+    want = [np.asarray(a) for a in jfd.moments_features(mask)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=0)
+    assert got[0][3] == 0 and got[1][3] == 0 and got[2][3] == 0
+
+
+def _blob_pair(mask, iterations):
+    d = np.asarray(jfd.chamfer_distance(mask, iterations))
+    got = fd._largest_blob(t(mask), t(d), iterations).numpy()
+    want = np.asarray(jfd._largest_blob(mask, d, iterations))
+    return got, want
+
+
+def test_largest_blob_matches_jax_including_ties():
+    # a long thin filament beside a compact cell: the largest AREA wins
+    mask = np.zeros((3, 40, 80), bool)
+    mask[0, 18:22, 2:78] = True
+    mask[0, 28:38, 10:20] = True
+    # a tie in d: two equal squares have equal depth; the first maximum in
+    # row-major order seeds the first round, and the larger area decides
+    mask[1, 5:15, 5:15] = True
+    mask[1, 5:15, 50:60] = True
+    mask[1, 25:35, 30:41] = True  # one column wider: the largest
+    # five equal squares: only four candidates are flooded; equal areas
+    # keep the first
+    for k in range(5):
+        mask[2, 2:9, 2 + 15 * k:9 + 15 * k] = True
+    got, want = _blob_pair(mask, 400)
+    np.testing.assert_array_equal(got, want)
+    assert got[0, 20, 40] and not got[0, 33, 15] and got[0].sum() == 304
+    assert got[1].sum() == 110 and got[1, 30, 35]
+    assert got[2].sum() == 49 and got[2, 5, 5]
+
+
+def test_device_features_track_jax_on_slot_batches():
+    """40 fixture-texture ROIs, slot-packed by the port's packer into one
+    (64, 128) canvas shape (one JAX compile), batches of 8."""
+    rng = np.random.default_rng(11)
+    images = fixture_images()
+    tagged = [(0, i + 1, resampled(rng, images, int(rng.integers(24, 65)),
+                                   int(rng.integers(30, 129))))
+              for i in range(40)]
+    before = (flood.launches, flood.global_launches)
+    got, want = [], []
+    for batch in pack.pack_rois(tagged, batch_size=8, buckets=((64, 128),),
+                                consolidate_tails=False):
+        n = batch.n_valid
+        got.append(fd.device_features(
+            t(batch.canvas), t(batch.heights), t(batch.widths)).numpy()[:n])
+        want.append(np.asarray(jfd.device_features(
+            batch.canvas, batch.heights, batch.widths))[:n])
+    assert (flood.launches, flood.global_launches) == before  # plain on CPU
+    got, want = np.concatenate(got), np.concatenate(want)
+    assert got.shape == want.shape == (40, 4) and got.dtype == np.float32
+    assert np.isfinite(got).all()
+    checked = want[:, 0] >= 50
+    n = int(checked.sum())
+    assert n >= 30
+    g, w = got[checked], want[checked]
+    flips = np.abs(g[:, 0] / w[:, 0] - 1) > 0.2
+    same = ((g[:, 0] == w[:, 0])
+            & (np.abs(g[:, 2] / w[:, 2] - 1) <= 1e-5)
+            & (np.abs(g[:, 3] / w[:, 3] - 1) <= 1e-5))
+    assert same.sum() >= 0.9 * n, f"{same.sum()}/{n} identical"
+    assert flips.sum() <= 2
+    bv = np.abs(g[~flips, 1] / w[~flips, 1] - 1)
+    assert np.percentile(bv, 90) <= 0.01
