@@ -38,20 +38,27 @@ Phases, one JSON object per line on stdout:
 5. ``kernel_flood``: K2 against its plain version, exact (bool masks and
    step counts), on the seven flood inputs of the first fused dispatch of
    the workload (taken by running the port's feature program on that
-   canvas), random masks at 2048x48x96 with border seeds, the ring
-   hole-fill, caps 1, 2 and 5, a 2x1024x1400 canvas past the shared-memory
-   budget (the global form), and the global form forced at 64x48x96. Each
-   case prints ms (median of 20 CUDA-event launches), steps, the plain ms
-   and the bound: the larger of the byte time (seed + within + output,
+   canvas), the seven of the dispatch with the largest canvas that picks
+   the shared-memory form (the 4-words-a-thread instance at 256x512),
+   random masks at 2048x48x96 with border seeds (picked by size:
+   the warp form; then the shared-memory form forced on the same input),
+   caps 0 (the load/store floor), 1, 2 and 5, the ring hole-fill, a
+   2x200x300 canvas past the warp form (the shared-memory form), a
+   2x1024x1400 canvas past the shared-memory budget (the global form), and
+   the global form forced at 64x48x96. Each case prints its form, ms
+   (median of 20 CUDA-event launches), device ms (torch.profiler), host us
+   a call (the wall time of 100 back-to-back calls / 100), steps, the plain
+   ms and the bound: the larger of the byte time (seed + within + output,
    3 B a pixel, at 3.35 TB/s) and the operation time (the steps these
-   inputs need x pixels x the form's logic operations a pixel, at the
-   card's int32 rate).
+   inputs need x 32-pixel words x 12 logic operations a word, whatever
+   the form, at the card's int32 rate).
 6. ``pipeline``: the same workload through ``python -m sykepic_tpu_torch
    pipeline ... -b 2048 --device-features`` (float32, codec on), cold and
    warm. Every ``.prob.csv`` and ``.feat.csv`` is checked; K1's launches
-   must equal the fused dispatches and K2's shared-memory launches 7x the
-   dispatches whose canvas fits that form. Then the fused on-chip rate,
-   peak device memory, and a warm stream under ``torch.profiler``.
+   must equal the fused dispatches, and K2's warp-form and shared-memory
+   launches 7x the dispatches whose canvas picks that form. Then the fused
+   on-chip rate, peak device memory, and a warm stream under
+   ``torch.profiler`` (K2's device time split by form).
 7. ``pipeline_card_vs_cpu``: the fused pass on the 202-ROI comparison set,
    the port on the CPU against the card: probabilities within 1.2e-5, and
    over the ROIs with area >= 50 at least 90% with area, major and minor
@@ -93,11 +100,12 @@ K1_OPS_PER_PIXEL = 10  # 6 mul/add of the two-tap blends, 3 index ops, /255
 # 1.98 GHz boost -- a quarter of the float32 figure, which counts an FMA as
 # two operations.
 INT32_OPS_PER_S = 16.7e12
-# K2's logic operations a pixel and a step. Shared-memory form: per 32-bit
-# word of 32 pixels, 6 ORs of the three column words, 4 shifts and 4 ORs
-# across the row, the AND with `within` and the compare with the old word.
-# Global-memory form: 9 neighbour tests, the AND, the compare and the store.
-K2_OPS_PER_PIXEL = {"shared": 16 / 32, "global": 12}
+# K2's logic operations a step for each 32-bit word of 32 pixels: 2 ORs with
+# the words above and below, 4 shifts and 4 ORs across the row, 1 AND with
+# `within` and 1 compare with the old word. The least work a step can be,
+# so the bound is the same for every form.
+K2_OPS_PER_WORD = 12
+HOST_CALLS = 100  # back-to-back calls whose wall time gives host us a call
 
 N_ROIS = 20_000
 PER_SAMPLE = 500
@@ -554,17 +562,21 @@ def phase_profile(model_dir: Path, samples) -> None:
     emit({"phase": "profile", **device_profile(stream)})
 
 
-def first_fused_dispatch(model_dir: Path, samples):
-    """The first (batch, meta) of the fused stream over ``samples``, as
+def fused_dispatch(model_dir: Path, samples, shape=None):
+    """The first (batch, meta) of the fused stream over ``samples`` (the
+    first whose canvas is ``shape`` (h, w), when given), as
     ``classify_and_feature_rois`` packs it with ``-b BATCH``."""
     from sykepic_tpu_torch.compute.engine import Classifier
 
     gen = Classifier(model_dir, batch_size=BATCH)._prepared_fused(
         sample_blocks(samples))
     try:
-        return next(gen)
+        for batch, meta in gen:
+            if shape is None or tuple(batch.canvas.shape[1:]) == shape:
+                return batch, meta
     finally:
         gen.close()
+    raise AssertionError(f"no fused dispatch has a {shape} canvas")
 
 
 def capture_floods(canvas, heights, widths):
@@ -589,17 +601,40 @@ def capture_floods(canvas, heights, widths):
     return calls
 
 
+FLOOD_COUNTERS = {"warp": "warp_launches", "shared": "launches",
+                  "global": "global_launches"}
+
+
+def flood_counts() -> dict:
+    from sykepic_tpu_torch.ops import flood
+
+    return {form: getattr(flood, c) for form, c in FLOOD_COUNTERS.items()}
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host time of one call: the wall time of ``calls`` back-to-back calls
+    (no synchronisation between them) over ``calls``."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * wall / calls
+
+
 def k2_case(name, seed, within, cap, form=None) -> dict:
     """K2 against its plain version on one input: exact masks and steps."""
     from sykepic_tpu_torch.ops import flood
 
     b, h, w = seed.shape
-    before = (flood.launches, flood.global_launches)
+    before = flood_counts()
     got, steps = flood.flood(seed, within, cap, return_steps=True, form=form)
     torch.cuda.synchronize()
-    used = "shared" if flood.launches > before[0] else "global"
-    check(flood.launches + flood.global_launches > sum(before),
-          f"K2 {name}: no launch")
+    ran = [f for f, n in flood_counts().items() if n > before[f]]
+    check(len(ran) == 1, f"K2 {name}: launched the forms {ran}")
+    used = ran[0]
     check(form is None or used == form, f"K2 {name}: ran the {used} form")
     plain, plain_steps = flood.flood_plain(seed, within, cap,
                                            return_steps=True)
@@ -608,20 +643,24 @@ def k2_case(name, seed, within, cap, form=None) -> dict:
     diff = int((got != plain).sum())
     check(diff == 0, f"K2 {name}: {diff} pixels differ from the plain version")
     check(torch.equal(steps, plain_steps), f"K2 {name}: step counts differ")
-    pixels = b * h * w
-    bytes_s = 3 * pixels / MEMORY_BYTES_PER_S
-    ops_s = (int(steps.to(torch.int64).sum()) * h * w
-             * K2_OPS_PER_PIXEL[used] / INT32_OPS_PER_S)
+    bytes_s = 3 * b * h * w / MEMORY_BYTES_PER_S
+    ops_s = (int(steps.to(torch.int64).sum()) * h * -(-w // 32)
+             * K2_OPS_PER_WORD / INT32_OPS_PER_S)
+
+    def call():
+        return flood.flood(seed, within, cap, form=form)
+
     out = {"phase": "kernel_flood", "case": name, "shape": [b, h, w],
-           "cap": cap, "form": used, "max_abs_err": float(diff),
+           "cap": cap, "form": used,
+           "instance": flood.pick_form(h, w, flood.smem_limit(seed.device))
+           if used == "warp" else used,
+           "max_abs_err": float(diff),
            "steps_max": int(steps.max()) if b else 0,
            "steps_mean": float(steps.float().mean()) if b else 0.0,
-           "ms": time_ms(lambda: flood.flood(seed, within, cap, form=form),
-                         TIMED_LAUNCHES),
+           "ms": time_ms(call, TIMED_LAUNCHES),
            # the kernels' own device time, without the wrapper's host time
-           "device_ms": device_ms(
-               lambda: flood.flood(seed, within, cap, form=form), "flood_",
-               TIMED_LAUNCHES),
+           "device_ms": device_ms(call, "flood_", TIMED_LAUNCHES),
+           "host_us": host_us(call),
            "plain_ms": time_ms(lambda: flood.flood_plain(seed, within, cap),
                                TIMED_PLAIN),
            "bytes_ms": 1e3 * bytes_s, "ops_ms": 1e3 * ops_s,
@@ -631,21 +670,53 @@ def k2_case(name, seed, within, cap, form=None) -> dict:
     return out
 
 
+FLOOD_NAMES = ("hysteresis", "fill_holes_1", "fill_holes_2", "blob_1",
+               "blob_2", "blob_3", "blob_4")
+
+
+def dispatch_floods(model_dir: Path, samples, name, shape=None) -> dict:
+    """K2 on the seven floods of one fused dispatch (the first, or the
+    first with a ``shape`` canvas), each case exact; prints and returns
+    their sums: the main path's K2 work for that dispatch. Its bound is the
+    larger of their summed byte time and their summed operation time."""
+    dev = torch.device("cuda")
+    batch, _ = fused_dispatch(model_dir, samples, shape)
+    canvas = torch.from_numpy(batch.canvas).to(dev)
+    calls = capture_floods(canvas, torch.from_numpy(batch.heights).to(dev),
+                           torch.from_numpy(batch.widths).to(dev))
+    check(len(calls) == 7, f"the feature program ran {len(calls)} floods")
+    cases = [k2_case(f"{name}_{n}", *call)
+             for n, call in zip(FLOOD_NAMES, calls)]
+    total = {k: sum(c[k] for c in cases)
+             for k in ("ms", "device_ms", "host_us", "plain_ms", "bytes_ms",
+                       "ops_ms")}
+    total["bound_ms"] = max(total["bytes_ms"], total["ops_ms"])
+    total["bound_by"] = ("bytes" if total["bytes_ms"] >= total["ops_ms"]
+                         else "operations")
+    total["max_abs_err"] = max(c["max_abs_err"] for c in cases)
+    total["forms"] = sorted({c["form"] for c in cases})
+    emit({"phase": "kernel_flood", "case": f"{name}_all_seven",
+          "shape": cases[0]["shape"], **total})
+    return total
+
+
 def phase_flood(model_dir: Path, samples) -> dict:
     """K2 on every case; returns the sums over the seven floods of the
     first fused dispatch (the main path's K2 work for one dispatch)."""
     from sykepic_tpu_torch.ops import flood
 
     dev = torch.device("cuda")
-    batch, _ = first_fused_dispatch(model_dir, samples)
-    canvas = torch.from_numpy(batch.canvas).to(dev)
-    calls = capture_floods(canvas, torch.from_numpy(batch.heights).to(dev),
-                           torch.from_numpy(batch.widths).to(dev))
-    check(len(calls) == 7, f"the feature program ran {len(calls)} floods")
-    names = ("hysteresis", "fill_holes_1", "fill_holes_2", "blob_1",
-             "blob_2", "blob_3", "blob_4")
-    main_cases = [k2_case(f"first_dispatch_{n}", *call)
-                  for n, call in zip(names, calls)]
+    first = dispatch_floods(model_dir, samples, "first_dispatch")
+    # the shared-memory form as the main path runs it: the dispatch with
+    # the most words a canvas among those that pick it
+    limit = flood.smem_limit(dev)
+    shared = [(h * -(-w // 32), (h, w)) for _, h, w in fused_shapes(samples)
+              if flood.pick_form(h, w, limit) == "shared"]
+    check(shared, "no fused dispatch picks the shared-memory form")
+    big = dispatch_floods(model_dir, samples, "shared_dispatch",
+                          max(shared)[1])
+    check(big["forms"] == ["shared"],
+          f"the shared dispatch ran the forms {big['forms']}")
 
     rng = np.random.default_rng(3)
 
@@ -660,8 +731,10 @@ def phase_flood(model_dir: Path, samples) -> dict:
                 torch.from_numpy(within).to(dev))
 
     s, m = random_case(2048, 48, 96)
-    k2_case("random_2048x48x96", s, m, 48 * 96)
-    for cap in (1, 2, 5):
+    warp = k2_case("random_2048x48x96", s, m, 48 * 96)
+    check(warp["form"] == "warp", "2048x48x96 did not pick the warp form")
+    k2_case("random_2048x48x96_shared", s, m, 48 * 96, form="shared")
+    for cap in (0, 1, 2, 5):
         k2_case(f"random_2048x48x96_cap{cap}", s, m, cap)
     yy, xx = np.mgrid[0:40, 0:40]
     r = np.hypot(yy - 20, xx - 20)
@@ -671,7 +744,10 @@ def phase_flood(model_dir: Path, samples) -> dict:
     ring_seed[:, :, 0] = ring_seed[:, :, -1] = True
     ring = k2_case("ring_1x40x40", torch.from_numpy(ring_seed & free).to(dev),
                    torch.from_numpy(free).to(dev), 1600)
-    check(ring["form"] == "shared", "the ring ran the global form")
+    check(ring["form"] == "warp", f"the ring ran the {ring['form']} form")
+    s, m = random_case(2, 200, 300)
+    check(k2_case("random_2x200x300", s, m, 200 * 300)["form"] == "shared",
+          "200x300 did not pick the shared-memory form")
     s, m = random_case(2, 1024, 1400, p=0.6)
     check(flood.shared_bytes(1024, 1400) > flood.smem_limit(dev),
           "1024x1400 fits shared memory")
@@ -679,17 +755,7 @@ def phase_flood(model_dir: Path, samples) -> dict:
     s, m = random_case(64, 48, 96)
     k2_case("random_64x48x96_global", s, m, 48 * 96, form="global")
 
-    # the seven floods as one piece of work: its bound is the larger of
-    # their summed byte time and their summed operation time
-    total = {k: sum(c[k] for c in main_cases)
-             for k in ("ms", "device_ms", "plain_ms", "bytes_ms", "ops_ms")}
-    total["bound_ms"] = max(total["bytes_ms"], total["ops_ms"])
-    total["bound_by"] = ("bytes" if total["bytes_ms"] >= total["ops_ms"]
-                         else "operations")
-    total["max_abs_err"] = max(c["max_abs_err"] for c in main_cases)
-    emit({"phase": "kernel_flood", "case": "first_dispatch_all_seven",
-          "shape": main_cases[0]["shape"], **total})
-    return total
+    return first
 
 
 def check_feat_csvs(out_dir: Path, counts: dict) -> None:
@@ -752,6 +818,9 @@ def device_profile(run) -> dict:
 
     k1_ms, k1_share = share("resize_pad")
     k2_ms, k2_share = share("flood_")
+    k2_by_form = {"warp": share("flood_warp")[0],
+                  "shared": share("flood_shared")[0],
+                  "global": share("flood_step")[0] + share("flood_init")[0]}
     # device time by kind, the first matching word of each kernel's name
     kinds = (("K1", ("resize_pad",)), ("K2", ("flood_",)),
              ("cuFFT", ("fft",)),
@@ -770,6 +839,7 @@ def device_profile(run) -> dict:
             "device_events": sum(n for _, n in by_name.values()),
             "k1_ms": k1_ms, "k1_share_of_device": k1_share,
             "k2_ms": k2_ms, "k2_share_of_device": k2_share,
+            "k2_ms_by_form": k2_by_form,
             "device_ms_by_kind": by_kind,
             "kernels_seen": len(by_name),
             "top": [{"kernel": key[:80], "ms": v[0], "calls": v[1]}
@@ -789,12 +859,16 @@ def phase_pipeline(model_dir: Path, raw: Path, counts: dict) -> dict:
     n_rois = sum(counts.values())
     shapes = fused_shapes(samples)
     limit = flood.smem_limit(torch.device("cuda"))
-    fits = sum(flood.shared_bytes(h, w) <= limit for _, h, w in shapes)
+    picks = [flood.pick_form(h, w, limit) for _, h, w in shapes]
+    by_form = {f: sum(1 for p in picks if (p if isinstance(p, str)
+                                             else p[0]) == f)
+               for f in FLOOD_COUNTERS}
     out = WORK / "out_fused"
     runs = {}
     for name, force in (("fused_codec_on", False),
                         ("fused_codec_on_warm", True)):
-        resize_pad.launches = flood.launches = flood.global_launches = 0
+        resize_pad.launches = 0
+        flood.warp_launches = flood.launches = flood.global_launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         main(["pipeline", "-r", str(raw), "-m", str(model_dir), "-o",
@@ -802,19 +876,22 @@ def phase_pipeline(model_dir: Path, raw: Path, counts: dict) -> dict:
              + (["-f"] if force else []))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {"k1": resize_pad.launches, "k2_shared": flood.launches,
-                    "k2_global": flood.global_launches}
+        launches = {"k1": resize_pad.launches,
+                    **{f"k2_{f}": n for f, n in flood_counts().items()}}
         check_csvs(out, counts, classes)
         check_feat_csvs(out, counts)
         check(launches["k1"] == len(shapes),
               f"{name}: K1 launched {launches['k1']} times for "
               f"{len(shapes)} dispatches")
-        check(launches["k2_shared"] == 7 * fits,
-              f"{name}: K2 launched {launches['k2_shared']} times in shared "
-              f"memory for {fits} dispatches that fit it")
+        for f in ("warp", "shared"):
+            check(launches[f"k2_{f}"] == 7 * by_form[f],
+                  f"{name}: K2's {f} form launched {launches[f'k2_{f}']} "
+                  f"times for {by_form[f]} dispatches that pick it")
+        check(by_form["global"] > 0 or launches["k2_global"] == 0,
+              f"{name}: the global form ran on no canvas that picks it")
         runs[name] = {"seconds": seconds, "rois_per_s": n_rois / seconds,
                       "dispatches": len(shapes),
-                      "dispatches_fitting_shared": fits,
+                      "dispatches_by_k2_form": by_form,
                       "launches": launches,
                       "peak_device_mib": torch.cuda.max_memory_allocated()
                       / 2**20}
@@ -928,8 +1005,10 @@ def main() -> int:
     k2 = timed("kernel_flood", phase_flood, model_dir, list(counts))
     fused_launches = timed("pipeline", phase_pipeline, model_dir, raw, counts)
     check(fused_launches["k1"] > 0, "the fused path never launched K1")
-    check(fused_launches["k2_shared"] + fused_launches["k2_global"] > 0,
-          "the fused path never launched K2")
+    k2_launches = {f: fused_launches[f"k2_{f}"] for f in FLOOD_COUNTERS}
+    check(sum(k2_launches.values()) > 0, "the fused path never launched K2")
+    check(k2_launches["warp"] > 0, "the fused path never launched K2's warp "
+          "form")
     timed("pipeline_card_vs_cpu", phase_pipeline_compare, model_dir)
     emit({"phase_seconds": seconds})
     k = main_case["f32"]
@@ -948,16 +1027,17 @@ def main() -> int:
         "library_ms": None,
     }, {
         # ms, plain_ms and bound_ms: the seven floods of the first fused
-        # dispatch, summed; launches: both forms in the fused run
+        # dispatch, summed; launches: every form in the fused run
         "name": "flood",
         "route": "cuda",
         "source": "sykepic_tpu_torch/csrc/flood.cu",
         "replaces": "sykepic_tpu/ops/pallas_flood.py:102",
-        "launches": fused_launches["k2_shared"] + fused_launches["k2_global"],
-        "global_form_launches": fused_launches["k2_global"],
+        "launches": sum(k2_launches.values()),
+        "launches_by_form": k2_launches,
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "device_ms": k2["device_ms"],
+        "host_us": k2["host_us"],
         "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],

@@ -17,6 +17,7 @@ which we also honor at the CLI layer).
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -176,15 +177,82 @@ def bucket_for(h: int, w: int, buckets=None) -> tuple[int, int]:
 
 
 def shrink_to_fit(img: np.ndarray, max_h: int, max_w: int) -> np.ndarray:
-    """Downscale an oversized ROI to fit (max_h, max_w), keeping aspect
-    (bilinear, :func:`resize_linear_u8`; the JAX package uses cv2's
-    INTER_AREA here, which the card's host lacks). The classify stream
-    never reaches this after :func:`pre_shrink`."""
+    """Downscale an oversized ROI to fit (max_h, max_w), keeping aspect, with
+    :func:`resize_area_u8` (bit-exact with cv2's INTER_AREA, as the JAX
+    package resizes here). The fused pass does not pre-shrink, so a ROI over
+    ``GRID_MAX`` on a side reaches this."""
     h, w = img.shape
     scale = min(max_h / h, max_w / w)
     new_h = max(1, int(h * scale))
     new_w = max(1, int(w * scale))
-    return resize_linear_u8(img, new_h, new_w)
+    return resize_area_u8(img, new_h, new_w)
+
+
+def _area_taps(src: int, dst: int, scale: float):
+    """Per-axis taps of OpenCV's INTER_AREA decimation
+    (``computeResizeAreaTab``): ``(si, alpha)`` as ``(dst, T)`` arrays in
+    cv2's summation order, padded with weight 0 (adding +0.0 changes no
+    float sum). Cell edges in double, weights rounded to float32."""
+    taps = []
+    for dx in range(dst):
+        fsx1 = dx * scale
+        fsx2 = fsx1 + scale
+        cell = min(scale, src - fsx1)
+        sx1, sx2 = math.ceil(fsx1), math.floor(fsx2)
+        sx2 = min(sx2, src - 1)
+        sx1 = min(sx1, sx2)
+        row = []
+        if sx1 - fsx1 > 1e-3:
+            row.append((sx1 - 1, (sx1 - fsx1) / cell))
+        row.extend((sx, 1.0 / cell) for sx in range(sx1, sx2))
+        if fsx2 - sx2 > 1e-3:
+            row.append((sx2, min(min(fsx2 - sx2, 1.0), cell) / cell))
+        taps.append(row)
+    t = max(len(r) for r in taps)
+    si = np.zeros((dst, t), np.int64)
+    alpha = np.zeros((dst, t), np.float32)
+    for dx, row in enumerate(taps):
+        for k, (s, a) in enumerate(row):
+            si[dx, k], alpha[dx, k] = s, a
+    return si, alpha
+
+
+def resize_area_u8(img: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
+    """Bit-exact twin of ``cv2.resize(img, (new_w, new_h),
+    interpolation=cv2.INTER_AREA)`` for a 2-D uint8 downscale (held against
+    cv2 in the tests). Integer factors take cv2's fast path: the integer
+    box sum, ``(sum + 2) >> 2`` at 2x2, else ``rint(float32(sum) *
+    float32(1 / area))``. Other factors take the area-weighted path: each
+    source row summed across in float32 with the x weights, the rows summed
+    down with the y weights, each in cv2's order, then rounded half to
+    even."""
+    h, w = img.shape
+    if new_h > h or new_w > w or new_h < 1 or new_w < 1:
+        raise ValueError(f"resize_area_u8 only downscales: ({h}, {w}) -> "
+                         f"({new_h}, {new_w})")
+    if (new_h, new_w) == (h, w):
+        return img.copy()
+    scale_x, scale_y = 1.0 / (new_w / w), 1.0 / (new_h / h)
+    ix, iy = round(scale_x), round(scale_y)
+    eps = np.finfo(np.float64).eps
+    if abs(scale_x - ix) < eps and abs(scale_y - iy) < eps:
+        box = img[:new_h * iy, :new_w * ix].astype(np.int32).reshape(
+            new_h, iy, new_w, ix).sum(axis=(1, 3))
+        if ix == 2 and iy == 2:
+            return ((box + 2) >> 2).astype(np.uint8)
+        out = np.rint(box.astype(np.float32)
+                      * (np.float32(1) / np.float32(ix * iy)))
+        return np.clip(out, 0, 255).astype(np.uint8)
+    sx, ax = _area_taps(w, new_w, scale_x)
+    sy, ay = _area_taps(h, new_h, scale_y)
+    src = img.astype(np.float32)
+    rows = np.zeros((h, new_w), np.float32)
+    for k in range(sx.shape[1]):
+        rows += src[:, sx[:, k]] * ax[:, k]
+    out = np.zeros((new_h, new_w), np.float32)
+    for k in range(sy.shape[1]):
+        out += rows[sy[:, k]] * ay[:, k, None]
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
 def _linear_taps(src: int, dst: int):

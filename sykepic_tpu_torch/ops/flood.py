@@ -7,17 +7,20 @@ canvas. Every step reads only the previous one (Jacobi), so the kernel, its
 plain version :func:`flood_plain` and the JAX flood agree at any ``cap``.
 
 :func:`flood` takes the plain version only for tensors on the CPU. On a CUDA
-tensor it launches one of the kernel's two forms, chosen by size, or raises:
+tensor it launches one of the kernel's three forms, chosen by size
+(:func:`pick_form`), or raises:
 
-- the shared-memory form, one launch per call, when an image's three
-  bit-packed planes (state, next state, ``within``) fit the block's opt-in
-  shared memory (:func:`shared_bytes`); it counts in ``launches``;
+- the warp form, one launch per call, for canvases up to 128 x 256: one
+  warp holds one image in registers; it counts in ``warp_launches``;
+- the shared-memory form, one launch per call, when an image's two
+  bit-packed planes (state, vertical OR) fit the block's opt-in shared
+  memory (:func:`shared_bytes`); it counts in ``launches``;
 - the global-memory form otherwise, one launch per step plus one to start,
   reading the device's "changed" record between groups of steps; it counts
   in ``global_launches``.
 
-``form=`` forces one of them (tests use it to reach the global form at a
-small shape).
+``form=`` forces one of them (tests use it to reach every form at a small
+shape).
 """
 
 from __future__ import annotations
@@ -28,48 +31,73 @@ import torch
 
 from . import cuda_build
 
+warp_launches = 0    # warp form: one per flood call
 launches = 0         # shared-memory form: one per flood call
 global_launches = 0  # global-memory form: one per step, plus the start
 
-_FORMS = (None, "shared", "global")
-_fns = None
+_FORMS = (None, "warp", "shared", "global")
+WARP_ROWS = (1, 2, 4)        # rows a lane holds: h <= 32 * rows
+WARP_WORDS = (1, 2, 4, 8)    # 32-pixel words a row: w <= 32 * words
+SHARED_MAX_WORDS = 32 * 1024  # 32 words a thread, 1024 threads
+_lib = None
 _smem_limit: dict[int, int] = {}
 
 
 def _kernels():
-    global _fns
-    if _fns is None:
+    global _lib
+    if _lib is None:
         lib = cuda_build.load("flood")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for name, args in (
                 ("flood_smem_limit", [i]),
+                ("flood_warp_launch", [p, p, p, p, i, i, i, i, i, ll, p]),
                 ("flood_shared_launch", [p, p, p, p, i, i, i, ll, p]),
                 ("flood_init_launch", [p, p, p, ll, p]),
                 ("flood_step_launch", [p, p, p, p, i, i, i, i, p])):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
             fn.argtypes = args
-        _fns = lib
-    return _fns
+        _lib = lib
+    return _lib
 
 
 def shared_bytes(h: int, w: int) -> int:
     """Shared memory the shared-memory form needs for one (h, w) image:
-    three planes of one 32-bit word per 32 pixels of a row."""
-    return 3 * h * (-(-w // 32)) * 4
+    two planes of one 32-bit word per 32 pixels of a row."""
+    return 2 * h * (-(-w // 32)) * 4
+
+
+def pick_form(h: int, w: int, smem_limit: int):
+    """The form :func:`flood` launches for (h, w) images on a card whose
+    blocks may opt into ``smem_limit`` bytes of shared memory:
+    ``("warp", rows, words)`` with the smallest instance that holds the
+    image, else ``"shared"`` when its planes fit, else ``"global"``."""
+    words = -(-w // 32)
+    rows = next((r for r in WARP_ROWS if h <= 32 * r), None)
+    wide = next((k for k in WARP_WORDS if words <= k), None)
+    if rows is not None and wide is not None:
+        return ("warp", rows, wide)
+    if shared_bytes(h, w) <= smem_limit and h * words <= SHARED_MAX_WORDS:
+        return "shared"
+    return "global"
 
 
 def smem_limit(device: torch.device) -> int:
     """The opt-in shared memory of one block on ``device``, in bytes."""
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
-    if index not in _smem_limit:
+    return _smem_limit_of(index)
+
+
+def _smem_limit_of(index: int) -> int:
+    v = _smem_limit.get(index)
+    if v is None:
         v = _kernels().flood_smem_limit(index)
         if v <= 0:
             raise RuntimeError(f"cannot read the shared memory limit of "
                                f"cuda:{index}")
         _smem_limit[index] = v
-    return _smem_limit[index]
+    return v
 
 
 def flood_plain(seed: torch.Tensor, within: torch.Tensor, cap: int,
@@ -96,7 +124,7 @@ def flood_plain(seed: torch.Tensor, within: torch.Tensor, cap: int,
 
 
 def _check(seed: torch.Tensor, within: torch.Tensor, cap: int, form) -> None:
-    if seed.device.type != "cuda" or within.device != seed.device:
+    if not seed.is_cuda or within.get_device() != seed.get_device():
         raise ValueError(
             f"seed ({seed.device}) and within ({within.device}) must lie on "
             "one CUDA device (or both on the CPU)")
@@ -127,37 +155,56 @@ def flood(seed: torch.Tensor, within: torch.Tensor, cap: int,
     ``within``; returns the bool mask and, with ``return_steps``, each
     image's step count (int32 ``(B,)``, as :func:`flood_plain` counts).
 
-    ``form``: ``None`` picks by size, ``"shared"`` or ``"global"`` forces
-    one (``"shared"`` raises when the image does not fit).
+    ``form``: ``None`` picks by size (:func:`pick_form`); ``"warp"``,
+    ``"shared"`` or ``"global"`` forces one (``"warp"`` and ``"shared"``
+    raise when the image does not fit them).
     """
-    global launches
+    global warp_launches, launches
     cap = int(cap)
-    if seed.device.type == "cpu" and within.device.type == "cpu":
+    if seed.is_cpu and within.is_cpu:
         return flood_plain(seed, within, cap, return_steps)
     _check(seed, within, cap, form)
     b, h, w = seed.shape
-    dev = seed.device
+    index = seed.get_device()
     if b == 0 or h == 0 or w == 0:
         out = torch.empty_like(seed)
-        steps = torch.zeros(b, dtype=torch.int32, device=dev)
+        steps = torch.zeros(b, dtype=torch.int32, device=seed.device)
         return (out, steps) if return_steps else out
-    fits = shared_bytes(h, w) <= smem_limit(dev)
-    if form == "shared" and not fits:
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return flood(seed, within, cap, return_steps, form)
+    picked = pick_form(h, w, _smem_limit_of(index))
+    kind = picked if isinstance(picked, str) else picked[0]
+    if form == "warp" and kind != "warp":
+        raise ValueError(f"a ({h}, {w}) image is past the warp form's "
+                         f"{32 * WARP_ROWS[-1]} x {32 * WARP_WORDS[-1]}")
+    if form == "shared" and kind == "global":
         raise ValueError(f"a ({h}, {w}) image needs {shared_bytes(h, w)} B "
-                         f"of shared memory, over the {smem_limit(dev)} B "
-                         "a block may have")
+                         f"of shared memory, over the {_smem_limit_of(index)}"
+                         " B a block may have")
+    kind = form or kind
     lib = _kernels()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        if form != "global" and fits:
-            out = torch.empty_like(seed)
-            steps = torch.empty(b, dtype=torch.int32, device=dev)
-            _raise_on(lib.flood_shared_launch(
-                seed.data_ptr(), within.data_ptr(), out.data_ptr(),
-                steps.data_ptr(), b, h, w, cap, stream), "shared")
-            launches += 1
-            return (out, steps) if return_steps else out
+    # host cost per call: the opt-in limit is read once per device and the
+    # ctypes functions are looked up once (ctypes keeps them on the library)
+    stream = torch.cuda.current_stream(index).cuda_stream
+    if kind == "global":
         out, steps = _flood_global(lib, seed, within, cap, stream)
+        return (out, steps) if return_steps else out
+    out = torch.empty_like(seed)
+    steps = (torch.empty(b, dtype=torch.int32, device=seed.device)
+             if return_steps else None)
+    steps_ptr = None if steps is None else steps.data_ptr()
+    if kind == "warp":
+        rows, words = picked[1:]
+        _raise_on(lib.flood_warp_launch(
+            seed.data_ptr(), within.data_ptr(), out.data_ptr(), steps_ptr,
+            b, h, w, rows, words, cap, stream), "warp")
+        warp_launches += 1
+    else:
+        _raise_on(lib.flood_shared_launch(
+            seed.data_ptr(), within.data_ptr(), out.data_ptr(), steps_ptr,
+            b, h, w, cap, stream), "shared")
+        launches += 1
     return (out, steps) if return_steps else out
 
 

@@ -213,7 +213,7 @@ def test_device_features_track_jax_on_slot_batches():
     tagged = [(0, i + 1, resampled(rng, images, int(rng.integers(24, 65)),
                                    int(rng.integers(30, 129))))
               for i in range(40)]
-    before = (flood.launches, flood.global_launches)
+    before = (flood.warp_launches, flood.launches, flood.global_launches)
     got, want = [], []
     for batch in pack.pack_rois(tagged, batch_size=8, buckets=((64, 128),),
                                 consolidate_tails=False):
@@ -222,7 +222,9 @@ def test_device_features_track_jax_on_slot_batches():
             t(batch.canvas), t(batch.heights), t(batch.widths)).numpy()[:n])
         want.append(np.asarray(jfd.device_features(
             batch.canvas, batch.heights, batch.widths))[:n])
-    assert (flood.launches, flood.global_launches) == before  # plain on CPU
+    # plain on CPU
+    assert (flood.warp_launches, flood.launches,
+            flood.global_launches) == before
     got, want = np.concatenate(got), np.concatenate(want)
     assert got.shape == want.shape == (40, 4) and got.dtype == np.float32
     assert np.isfinite(got).all()

@@ -13,6 +13,7 @@ import torch
 
 from sykepic_tpu.ops import features_device as jfd
 from sykepic_tpu.ops import pallas_flood
+from sykepic_tpu_torch.ingest import pack
 from sykepic_tpu_torch.ops import flood
 
 
@@ -130,20 +131,67 @@ def test_steps_count_up_to_the_first_step_that_changes_nothing():
 
 def test_wrapper_takes_the_plain_version_on_the_cpu():
     s, within = (torch.from_numpy(a) for a in CASES["random_3x28x33"]())
-    before = (flood.launches, flood.global_launches)
+    before = (flood.launches, flood.warp_launches, flood.global_launches)
     got = flood.flood(s, within, 28 * 33)
-    assert (flood.launches, flood.global_launches) == before
+    assert (flood.launches, flood.warp_launches,
+            flood.global_launches) == before
     assert torch.equal(got, flood.flood_plain(s, within, 28 * 33))
     empty = torch.zeros((0, 8, 8), dtype=torch.bool)
     assert flood.flood(empty, empty, 64).shape == (0, 8, 8)
 
 
+H100_OPTIN = 232448  # bytes of shared memory a block may opt into
+
+
 def test_shared_form_budget():
-    # three planes of ceil(w/32) words per row: the fused path's largest
+    # two planes of ceil(w/32) words per row: the fused path's largest
     # grid canvas side is 1024 (ingest/pack.py GRID_MAX)
-    assert flood.shared_bytes(48, 96) == 3 * 48 * 3 * 4
-    assert flood.shared_bytes(1, 33) == 3 * 2 * 4
-    h100_optin = 232448
-    assert flood.shared_bytes(1024, 512) <= h100_optin
-    assert flood.shared_bytes(1024, 1024) > h100_optin
-    assert flood.shared_bytes(1024, 1400) > h100_optin
+    assert flood.shared_bytes(48, 96) == 2 * 48 * 3 * 4
+    assert flood.shared_bytes(1, 33) == 2 * 2 * 4
+    assert flood.shared_bytes(1024, 512) <= H100_OPTIN
+    assert flood.shared_bytes(1024, 896) <= H100_OPTIN
+    assert flood.shared_bytes(1024, 960) > H100_OPTIN
+    assert flood.shared_bytes(1024, 1024) > H100_OPTIN
+    assert flood.shared_bytes(1024, 1400) > H100_OPTIN
+
+
+def _ladder():
+    # every side the slot packer's grid can give (ingest/pack.py snap_dim)
+    return sorted({pack.snap_dim(x) for x in range(1, pack.GRID_MAX + 1)})
+
+
+def test_pick_form_over_every_ladder_canvas():
+    sides = _ladder()
+    assert sides[:3] == [8, 16, 24] and sides[-1] == 1024 and len(sides) == 28
+    seen = {"warp": 0, "shared": 0, "global": 0}
+    for h in sides:
+        for w in sides:
+            got = flood.pick_form(h, w, H100_OPTIN)
+            if h <= 128 and w <= 256:
+                rows = 1 if h <= 32 else 2 if h <= 64 else 4
+                words = -(-w // 32)
+                words = next(k for k in (1, 2, 4, 8) if words <= k)
+                assert got == ("warp", rows, words), (h, w)
+            elif flood.shared_bytes(h, w) <= H100_OPTIN:
+                assert got == "shared", (h, w)
+            else:
+                assert got == "global", (h, w)
+            # a canvas whose planes fit takes a one-launch form
+            if flood.shared_bytes(h, w) <= H100_OPTIN:
+                assert got != "global", (h, w)
+            seen[got if isinstance(got, str) else got[0]] += 1
+    # 12 sides up to 128 by 16 up to 256; past the budget only
+    # 960x1024, 1024x960 and 1024x1024
+    assert seen == {"warp": 12 * 16, "shared": 589, "global": 3}
+    # the main path's canvases (chip_smoke's size mix)
+    assert flood.pick_form(32, 56, H100_OPTIN) == ("warp", 1, 2)
+    assert flood.pick_form(48, 96, H100_OPTIN) == ("warp", 2, 4)
+    assert flood.pick_form(128, 256, H100_OPTIN) == ("warp", 4, 8)
+    assert flood.pick_form(129, 256, H100_OPTIN) == "shared"
+    assert flood.pick_form(128, 257, H100_OPTIN) == "shared"
+    assert flood.pick_form(256, 512, H100_OPTIN) == "shared"
+    assert flood.pick_form(1024, 896, H100_OPTIN) == "shared"
+    assert flood.pick_form(1024, 960, H100_OPTIN) == "global"
+    # a card with less shared memory sends more canvases to the global form
+    assert flood.pick_form(256, 512, 16 * 1024) == "global"
+    assert flood.pick_form(48, 96, 0) == ("warp", 2, 4)

@@ -9,7 +9,7 @@ without JAX::
 Tolerances: K1 in float32 within 1e-3/255 of the plain version (the kernel
 repeats its float steps one by one, so in practice they agree exactly), in
 bfloat16 within one bf16 ulp of the plain version cast to bf16; K2 exact
-(bool masks, and the same step count per image), in both of its forms.
+(bool masks, and the same step count per image), in each of its three forms.
 """
 
 import numpy as np
@@ -113,31 +113,81 @@ def _flood_ring(rng, b, h, w):
     return seed & free, free
 
 
+def _flood_empty_seed(rng, b, h, w):
+    return np.zeros((b, h, w), bool), rng.uniform(size=(b, h, w)) < 0.7
+
+
+def _flood_full(rng, b, h, w):
+    seed = np.zeros((b, h, w), bool)
+    seed[np.arange(b), rng.integers(0, h, b), rng.integers(0, w, b)] = True
+    return seed, np.ones((b, h, w), bool)
+
+
+def _flood_serpentine(rng, b, h, w):
+    # a 1-pixel corridor: every other row open, joined at alternate ends,
+    # seeded at one end; the longest chain a canvas holds (~h w / 2 steps)
+    within = np.zeros((h, w), bool)
+    within[::2] = True
+    within[1::4, -1] = True
+    within[3::4, 0] = True
+    seed = np.zeros((h, w), bool)
+    seed[0, 0] = True
+    return (np.broadcast_to(seed, (b, h, w)).copy(),
+            np.broadcast_to(within, (b, h, w)).copy())
+
+
+_FLOOD_INPUTS = {"random": _flood_random, "ring": _flood_ring,
+                 "empty_seed": _flood_empty_seed, "full": _flood_full,
+                 "serpentine": _flood_serpentine}
+_COUNTERS = {"warp": "warp_launches", "shared": "launches",
+             "global": "global_launches"}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("form", ["shared", "global"])
+@pytest.mark.parametrize("form", ["warp", "shared", "global"])
 @pytest.mark.parametrize("case", [
     ("random", 64, 48, 96, None), ("random", 3, 28, 33, None),
     ("random", 2, 200, 700, None), ("ring", 2, 40, 40, None),
     ("random", 16, 48, 96, 1), ("random", 16, 48, 96, 2),
-    ("random", 16, 48, 96, 5), ("ring", 1, 64, 64, 0)])
+    ("random", 16, 48, 96, 5), ("ring", 1, 64, 64, 0),
+    # the warp form's (rows, words) corners, at batches that are not a
+    # multiple of its 8 images a block
+    ("random", 9, 32, 32, None), ("random", 9, 33, 33, None),
+    ("random", 5, 64, 64, None), ("random", 3, 128, 256, None),
+    ("random", 11, 96, 200, None),
+    ("random", 9, 40, 61, None),  # a width that is not a multiple of 8
+    ("random", 16, 48, 96, 0),
+    ("empty_seed", 4, 48, 96, None), ("full", 4, 48, 96, None),
+    ("serpentine", 2, 64, 64, None), ("serpentine", 1, 128, 256, None),
+    # the shared-memory form's 4, 16 and 32 words a thread (the largest
+    # canvas of the fused workload, and slot canvases up to 1024x896)
+    ("random", 3, 256, 512, None), ("random", 1, 1024, 512, None),
+    ("random", 1, 1024, 896, None)])
 def test_flood_kernel_matches_plain_version(cuda, form, case):
     kind, b, h, w, cap = case
-    make = _flood_random if kind == "random" else _flood_ring
-    seed, within = make(np.random.default_rng(b * h + w), b, h, w)
+    seed, within = _FLOOD_INPUTS[kind](np.random.default_rng(b * h + w), b,
+                                       h, w)
     s = torch.from_numpy(seed).to(cuda)
     m = torch.from_numpy(within).to(cuda)
     cap = h * w if cap is None else cap
-    counter = "launches" if form == "shared" else "global_launches"
+    if form == "warp" and (h > 128 or w > 256):
+        with pytest.raises(ValueError):
+            flood.flood(s, m, cap, form=form)
+        return
+    counter = _COUNTERS[form]
     before = getattr(flood, counter)
     out, steps = flood.flood(s, m, cap, return_steps=True, form=form)
     torch.cuda.synchronize()
     assert getattr(flood, counter) > before
-    want, want_steps = flood.flood_plain(torch.from_numpy(seed),
-                                         torch.from_numpy(within), cap,
+    # the plain version on the card past 512k pixels (hundreds of steps)
+    where = cuda if h * w >= 1 << 19 else torch.device("cpu")
+    want, want_steps = flood.flood_plain(s.to(where), m.to(where), cap,
                                          return_steps=True)
     assert out.dtype == torch.bool and out.shape == (b, h, w)
-    assert torch.equal(out.cpu(), want)
-    assert torch.equal(steps.cpu(), want_steps)
+    assert torch.equal(out.to(where), want)
+    assert torch.equal(steps.to(where), want_steps)
+    # without the step counts the same mask
+    assert torch.equal(flood.flood(s, m, cap, form=form).to(where), want)
 
 
 @pytest.mark.gpu
@@ -147,27 +197,37 @@ def test_flood_picks_the_global_form_past_shared_memory(cuda):
     assert flood.shared_bytes(1024, 1400) > flood.smem_limit(cuda)
     s = torch.from_numpy(seed).to(cuda)
     m = torch.from_numpy(within).to(cuda)
-    before = (flood.launches, flood.global_launches)
+    before = (flood.launches, flood.warp_launches, flood.global_launches)
     out = flood.flood(s, m, 1024 * 1400)
     torch.cuda.synchronize()
-    assert flood.launches == before[0]
-    assert flood.global_launches > before[1]
+    assert (flood.launches, flood.warp_launches) == before[:2]
+    assert flood.global_launches > before[2]
     # the plain version on the card too: 1024x1400 takes thousands of steps
     assert torch.equal(out, flood.flood_plain(s, m, 1024 * 1400))
     with pytest.raises(ValueError):
         flood.flood(s, m, 10, form="shared")
+    with pytest.raises(ValueError):
+        flood.flood(s, m, 10, form="warp")
 
 
 @pytest.mark.gpu
-def test_flood_one_launch_per_call_in_shared_memory(cuda):
-    seed, within = _flood_random(np.random.default_rng(6), 8, 48, 96)
+@pytest.mark.parametrize("shape,picked", [((8, 200, 300), "shared"),
+                                          ((8, 48, 96), ("warp", 2, 4))])
+def test_flood_one_launch_per_call_in_shared_memory(cuda, shape, picked):
+    # one launch per call in each one-launch form, picked by size; the
+    # warp case holds the warp_launches count
+    seed, within = _flood_random(np.random.default_rng(6), *shape)
     s = torch.from_numpy(seed).to(cuda)
     m = torch.from_numpy(within).to(cuda)
-    before = (flood.launches, flood.global_launches)
+    assert flood.pick_form(*shape[1:], flood.smem_limit(cuda)) == picked
+    mine = _COUNTERS["shared" if picked == "shared" else "warp"]
+    before = {c: getattr(flood, c) for c in _COUNTERS.values()}
     for k in range(3):
-        flood.flood(s, m, 48 * 96)
-        assert flood.launches == before[0] + k + 1
-    assert flood.global_launches == before[1]
+        flood.flood(s, m, shape[1] * shape[2])
+        assert getattr(flood, mine) == before[mine] + k + 1
+    for c in _COUNTERS.values():
+        if c != mine:
+            assert getattr(flood, c) == before[c]
 
 
 @pytest.mark.gpu
@@ -189,7 +249,8 @@ def test_flood_rejects_what_it_does_not_take(cuda):
 @pytest.mark.gpu
 def test_flood_empty_batch(cuda):
     empty = torch.zeros((0, 48, 96), dtype=torch.bool, device=cuda)
-    before = (flood.launches, flood.global_launches)
+    before = (flood.launches, flood.warp_launches, flood.global_launches)
     out, steps = flood.flood(empty, empty, 100, return_steps=True)
     assert out.shape == (0, 48, 96) and steps.shape == (0,)
-    assert (flood.launches, flood.global_launches) == before
+    assert (flood.launches, flood.warp_launches,
+            flood.global_launches) == before

@@ -88,12 +88,13 @@ def _rows(path):
 def both_runs(raw_dir, model_dir, tmp_path_factory):
     out = tmp_path_factory.mktemp("pipeline")
     mine, theirs = out / "port", out / "jax"
-    before = (resize_pad.launches, flood.launches, flood.global_launches)
+    before = (resize_pad.launches, flood.warp_launches, flood.launches,
+              flood.global_launches)
     written = main(["pipeline", "-r", str(raw_dir), "-m", str(model_dir),
                     "-o", str(mine), "-b", "4", "--device-features",
                     "--device", "cpu"])
     # the CPU takes the kernels' plain versions
-    assert (resize_pad.launches, flood.launches,
+    assert (resize_pad.launches, flood.warp_launches, flood.launches,
             flood.global_launches) == before
     jax_main(["pipeline", "-r", str(raw_dir), "-m", str(model_dir),
               "-o", str(theirs), "-b", "4", "--device-features"])
