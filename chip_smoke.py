@@ -63,8 +63,44 @@ Phases, one JSON object per line on stdout:
    the port on the CPU against the card: probabilities within 1.2e-5, and
    over the ROIs with area >= 50 at least 90% with area, major and minor
    identical (area equal, axes within 1e-5 relative).
+8. ``train``: ``python -m sykepic_tpu_torch train`` (``main``, in-process)
+   on a synthetic PNG set written with the port's own PNG writer (3,000
+   images in ``bench.py``'s size mix, dealt out to 8 classes by size with
+   noise, so ROI size and brightness follow the class; half the files with
+   Sub/Up/Average/Paeth rows, half with filter 0; split 0.8/0.1/0.1) at
+   the full width of ``train.ini.example``: ResNet18 on
+   3x180x180, head 256,128, batch 256, bfloat16 autocast, Adam, flip,
+   translate, zoom and brightness, the device-resident dataset with
+   stratified mixed batches, and warmup steps 1/2/3 so that epochs 1, 2 and
+   3 run stages 0, 1 and 2, 4 epochs. Checked: the train loss is finite and
+   falls from epoch 1 to 4; K1's train-form launches equal the mixed
+   buckets x steps of every epoch and its eval-form launches the eval
+   batches; every K1 launch of the first step (one per bucket, recorded as
+   the step made it) equals the plain version on the same inputs, the
+   step's bfloat16 output within one bf16 ulp and the same inputs in
+   float32 within 1e-3/255; the model directory holds every artifact; the
+   port's ``prob`` on the card reads it and writes a CSV. Printed: train
+   images/s over the warm epochs 2-4, one more warm epoch under
+   torch.profiler (device busy share, device ms by kind), and the set-up:
+   the datasets' build seconds, PNG decode seconds by row filters (summed
+   over the decode threads), and a single-threaded decode of 200 files of
+   each kind with the native unfilter and with its Python twin.
+9. ``kernel_resize_pad_train``: K1's train form against its plain version
+   in float32 on 2,048 slots of the largest store of that run: random
+   affines with both flips, zoom 0.6 and 1.4, translations at -limit and
+   +limit, brightness on and off (max |diff| <= 1e-3/255); ms by events
+   (one call each), device ms (torch.profiler, per kernel it recorded of
+   20 launches), loop ms (20 back-to-back calls between two events, with
+   a new output each and into one preallocated output), plain ms and the
+   byte bound (uint8 reads, the slot inputs and
+   float32 NHWC writes at 3.35 TB/s).
+10. ``train_step_card_vs_cpu``: one float32 train step (no augmentation, no
+   dropout) of the full-width model on 32 images of the set, on the card
+   and on the CPU from the same weights: loss within 1e-4 relative, the
+   BatchNorm running variances within 1e-3 relative.
 
-Then the ``kernels`` line, the ``nvidia-smi`` line, and last
+Then the ``kernels`` line (K1's eval form, K1's train form, K2), the
+``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a card, or outside a checkout, the script exits non-zero at once.
 Everything it writes goes to ``build/chip_smoke/``.
@@ -305,9 +341,25 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, word: str, reps: int) -> float:
-    """Device time a call of ``fn`` spends in kernels whose name holds
-    ``word``, from torch.profiler over ``reps`` calls."""
+def loop_ms(fn, reps: int) -> float:
+    """Mean time of ``reps`` back-to-back calls between two CUDA events:
+    the device's time per call once the launches run ahead of it."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def profiled_kernels(fn, word: str, reps: int) -> tuple[float, int]:
+    """Device ms and number of the kernels whose name holds ``word`` in
+    torch.profiler's trace of ``reps`` calls of ``fn`` (the raw trace
+    events; ``key_averages`` was seen to keep 9 of 20)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -316,8 +368,11 @@ def device_ms(fn, word: str, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if word in e.key) / 1e3 / reps
+    cuda = torch.autograd.DeviceType.CUDA
+    hits = [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda and word in e.name()]
+    return (sum(e.duration_ns() / 1e6 if hasattr(e, "duration_ns")
+                else e.duration_us() / 1e3 for e in hits), len(hits))
 
 
 def k1_case(name, pixels: np.ndarray, meta: np.ndarray, target=180) -> dict:
@@ -650,6 +705,12 @@ def k2_case(name, seed, within, cap, form=None) -> dict:
     def call():
         return flood.flood(seed, within, cap, form=form)
 
+    # device time per kernel the trace holds, times the kernels a call
+    # launches (the counters), so a trace that misses records reads right
+    launched = sum(flood_counts().values())
+    prof_ms, recorded = profiled_kernels(call, "flood_", TIMED_LAUNCHES)
+    per_call = (sum(flood_counts().values()) - launched) / (TIMED_LAUNCHES
+                                                            + 1)
     out = {"phase": "kernel_flood", "case": name, "shape": [b, h, w],
            "cap": cap, "form": used,
            "instance": flood.pick_form(h, w, flood.smem_limit(seed.device))
@@ -659,7 +720,11 @@ def k2_case(name, seed, within, cap, form=None) -> dict:
            "steps_mean": float(steps.float().mean()) if b else 0.0,
            "ms": time_ms(call, TIMED_LAUNCHES),
            # the kernels' own device time, without the wrapper's host time
-           "device_ms": device_ms(call, "flood_", TIMED_LAUNCHES),
+           # None: the trace holds none of the kernels the calls launched
+           "device_ms": (0.0 if per_call == 0 else
+                         prof_ms / recorded * per_call if recorded else None),
+           "device_kernels_recorded": recorded,
+           "device_kernels_launched": per_call * TIMED_LAUNCHES,
            "host_us": host_us(call),
            "plain_ms": time_ms(lambda: flood.flood_plain(seed, within, cap),
                                TIMED_PLAIN),
@@ -688,8 +753,9 @@ def dispatch_floods(model_dir: Path, samples, name, shape=None) -> dict:
     cases = [k2_case(f"{name}_{n}", *call)
              for n, call in zip(FLOOD_NAMES, calls)]
     total = {k: sum(c[k] for c in cases)
-             for k in ("ms", "device_ms", "host_us", "plain_ms", "bytes_ms",
-                       "ops_ms")}
+             for k in ("ms", "host_us", "plain_ms", "bytes_ms", "ops_ms")}
+    device = [c["device_ms"] for c in cases]
+    total["device_ms"] = None if None in device else sum(device)
     total["bound_ms"] = max(total["bytes_ms"], total["ops_ms"])
     total["bound_by"] = ("bytes" if total["bytes_ms"] >= total["ops_ms"]
                          else "operations")
@@ -788,7 +854,27 @@ def fused_shapes(samples):
         buckets=None, pre_shrink_to=None, consolidate_tails=False)]
 
 
-def device_profile(run) -> dict:
+# device time by kind for inference profiles: the first matching word of
+# each kernel's name
+INFER_KINDS = (("K1", ("resize_pad",)), ("K2", ("flood_",)),
+               ("cuFFT", ("fft",)),
+               ("cuDNN/cuBLAS", ("xmma", "convolve", "cudnn", "gemm")),
+               ("max_pool", ("max_pool",)), ("reduce", ("reduce",)),
+               ("sort", ("sort", "radix")), ("elementwise", ("elementwise",)),
+               ("copy/fill", ("Memcpy", "Memset", "copy")))
+# and for a training epoch
+TRAIN_KINDS = (("K1", ("resize_pad",)),
+               ("conv/gemm backward", ("dgrad", "wgrad", "bwd", "backward")),
+               ("conv/gemm forward", ("fprop", "fwd", "xmma", "convolve",
+                                      "cudnn", "gemm", "cutlass")),
+               ("batch_norm", ("batch_norm", "bn_")),
+               ("optimizer", ("multi_tensor_apply", "foreach")),
+               ("max_pool", ("max_pool",)), ("reduce", ("reduce",)),
+               ("elementwise", ("elementwise",)),
+               ("copy/fill", ("Memcpy", "Memset", "copy")))
+
+
+def device_profile(run, kinds=INFER_KINDS) -> dict:
     """Device time by kernel while ``run()`` goes: CUDA activity only under
     torch.profiler, summed from the raw trace events (the fused stream
     makes hundreds of thousands of kernels; ``key_averages`` would spend
@@ -821,13 +907,6 @@ def device_profile(run) -> dict:
     k2_by_form = {"warp": share("flood_warp")[0],
                   "shared": share("flood_shared")[0],
                   "global": share("flood_step")[0] + share("flood_init")[0]}
-    # device time by kind, the first matching word of each kernel's name
-    kinds = (("K1", ("resize_pad",)), ("K2", ("flood_",)),
-             ("cuFFT", ("fft",)),
-             ("cuDNN/cuBLAS", ("xmma", "convolve", "cudnn", "gemm")),
-             ("max_pool", ("max_pool",)), ("reduce", ("reduce",)),
-             ("sort", ("sort", "radix")), ("elementwise", ("elementwise",)),
-             ("copy/fill", ("Memcpy", "Memset", "copy")))
     by_kind = {k: 0.0 for k, _ in kinds + (("other", ()),)}
     for key, (ms, _) in by_name.items():
         kind = next((k for k, words in kinds
@@ -966,6 +1045,476 @@ def phase_pipeline_compare(model_dir: Path) -> None:
     check(share >= 0.9, f"only {share:.1%} of ROIs have identical features")
 
 
+# -- training -------------------------------------------------------------------
+
+TRAIN_CLASSES = 8
+TRAIN_IMAGES = 3000
+TRAIN_EPOCHS = 4
+TRAIN_SLOTS = 2048  # slots of the K1 train-form case
+STEP_IMAGES = 32  # images of the card-against-CPU train step
+# sd of the noise on log area when the train set's shapes are dealt out to
+# the classes: sizes follow the class, neighbouring classes overlap
+TRAIN_SIZE_NOISE = 0.35
+DECODE_FILES = 200  # files of each filter kind in the single-thread decode
+TRAIN_INI = """
+[dataset]
+path = {dataset}
+split = 0.8, 0.1, 0.1
+external_test =
+min_N =
+max_N =
+exclude =
+random_seed = 24
+oversample_until =
+oversample_with_decay =
+
+[model]
+path = {models}
+network = resnet18
+weights =
+id = auto
+exist_ok = no
+head = 256, 128
+dropout =
+
+[image]
+shape = 3, 180, 180
+augmentations = flip, translate, zoom, brightness
+imagenet_normalization = no
+border = mode
+zoom_range = 0.6, 1.4
+brightness_range = 0.95, 1.1
+max_rotation = 10
+batch_size = 256
+num_workers = 8
+device_cache = auto
+
+[train]
+max_epochs = {epochs}
+early_stop_patience = 12
+learning_rate = 0.01
+optimizer = Adam
+dtype = bfloat16
+
+[lr_warmup]
+use = yes
+factor_1 = 0.1
+factor_2 = 0.5
+step_1 = 1
+step_2 = 2
+step_3 = 3
+
+[lr_reduction]
+use = yes
+factor = 0.1
+patience = 4
+"""
+TRAIN_ARTIFACTS = ("config.ini", "class_names.txt", "class_distribution.csv",
+                   "best_state.msgpack", "train_state.pt", "test_report.txt")
+STEP_LOSS_RTOL = 1e-4
+STEP_VAR_RTOL = 1e-3
+
+
+def build_train_set(root: Path, seed: int) -> Path:
+    """``TRAIN_IMAGES`` PNGs in ``TRAIN_CLASSES`` class folders, written
+    with the port's PNG writer. The shapes are drawn from ``ROI_SIZE_MIX``
+    (bench.py's IFCB size mix, as the ``prob`` workload's), ordered by log
+    area plus noise and dealt out to the classes in that order, so ROI size
+    follows the class as in plankton data while the set keeps the mix
+    (1% wider than the 180 px input, so the host pre-shrink runs). Each
+    class's mean gray level rises with it. Every other file cycles its rows
+    through the Sub, Up, Average and Paeth filters (``*_m.png``), as
+    libpng's adaptive choice does; the rest take filter 0 (``*_0.png``)."""
+    from sykepic_tpu_torch.utils import png
+
+    rng = np.random.default_rng(seed)
+    shapes = roi_shapes(rng, TRAIN_IMAGES)
+    key = np.log([h * w for h, w in shapes]) + rng.normal(
+        0, TRAIN_SIZE_NOISE, len(shapes))
+    order = np.argsort(key, kind="stable")
+    per = TRAIN_IMAGES // TRAIN_CLASSES
+    for k in range(TRAIN_CLASSES):
+        d = root / f"class_{k}"
+        d.mkdir(parents=True)
+        for i, j in enumerate(order[k * per:(k + 1) * per]):
+            h, w = shapes[j]
+            img = rng.normal(40 + 24 * k, 20, (h, w))
+            img[::3] += 30 * (k % 2)  # stripes on odd classes
+            mixed = i % 2 == 1
+            png.write_png(d / f"{k}_{i:04}_{'m' if mixed else '0'}.png",
+                          np.clip(img, 0, 255).astype(np.uint8), level=1,
+                          filters=(1, 2, 3, 4) if mixed else (0,))
+    return root
+
+
+def decode_case(paths, reps: int = 3) -> dict:
+    """Single-threaded decode of ``paths``: us an image (and per megapixel)
+    to read the files' bytes, and to decode those bytes with the native
+    unfilter and with its Python twin."""
+    from sykepic_tpu_torch.ingest import native
+    from sykepic_tpu_torch.utils import png
+
+    pixels = sum(h * w for h, w in map(png.png_dims, paths))
+    t0 = time.perf_counter()
+    blobs = [Path(p).read_bytes() for p in paths]
+    out = {"files": len(paths), "pixels": pixels,
+           "read_us_per_image": 1e6 * (time.perf_counter() - t0) / len(paths)}
+    orig = native.png_unfilter
+    for tag, n in (("native", reps), ("python", 1)):
+        if tag == "python":
+            native.png_unfilter = lambda rows, bpp: None
+        try:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                for p, b in zip(paths, blobs):
+                    png.decode_png(b, p)
+            s = (time.perf_counter() - t0) / n
+        finally:
+            native.png_unfilter = orig
+        out[tag] = {"us_per_image": 1e6 * s / len(paths),
+                    "us_per_mpixel": 1e12 * s / pixels}
+    return out
+
+
+def k1_step_check(calls) -> dict:
+    """Every K1 train-form launch of one mixed step of the training run,
+    recorded as ``Trainer._preprocess`` made it (its store, rows' metadata,
+    affine, brightness, output dtype and output), against the plain
+    version: the step's own bfloat16 outputs within one bf16 ulp, and the
+    same inputs through the kernel in float32 within 1e-3/255."""
+    from sykepic_tpu_torch.ops import preprocess, resize_pad
+
+    cases = []
+    for c in calls:
+        kw = {k: c[k] for k in ("affine", "bright", "mean", "std")}
+        args = (c["pixels"], c["meta"], *c["shape"])
+        plain = preprocess.resize_pad_plain(*args, torch.float32, **kw)
+        got = c["out"]
+        err = (got.float() - plain.to(got.dtype).float()).abs()
+        if got.dtype == torch.bfloat16:
+            ulp = plain.to(got.dtype).float().abs() * 2.0 ** -7
+            check(bool((err <= ulp).all()),
+                  f"K1 train form, step bucket {list(c['pixels'].shape)}: "
+                  "beyond 1 bf16 ulp")
+        f32 = resize_pad.resize_pad(*args, torch.float32, **kw)
+        err32 = float((f32 - plain).abs().max())
+        check(err32 <= 1e-3 / 255,
+              f"K1 train form f32, step bucket {list(c['pixels'].shape)}: "
+              f"max |diff| {err32}")
+        cases.append({"store": list(c["pixels"].shape),
+                      "slots": int(c["meta"].shape[1]),
+                      "dtype": str(got.dtype).replace("torch.", ""),
+                      "max_abs_err": float(err.max()),
+                      "max_abs_err_f32": err32})
+    return {"buckets": len(cases), "cases": cases,
+            "max_abs_err_f32": max(c["max_abs_err_f32"] for c in cases)}
+
+
+def phase_train(smi: str) -> dict:
+    """The train path through the CLI; returns what the later phases and
+    the kernels line read."""
+    from sykepic_tpu_torch.__main__ import main
+    from sykepic_tpu_torch.models import checkpoint
+    from sykepic_tpu_torch.ops import resize_pad
+    from sykepic_tpu_torch.train import device_data
+    from sykepic_tpu_torch.train import input as input_mod
+    from sykepic_tpu_torch.train import trainer as trainer_mod
+
+    root = WORK / "train"
+    t0 = time.perf_counter()
+    dataset = build_train_set(root / "dataset", seed=11)
+    write_s = time.perf_counter() - t0
+    ini = root / "train.ini"
+    ini.write_text(TRAIN_INI.format(dataset=dataset, models=root / "models",
+                                    epochs=TRAIN_EPOCHS))
+    epochs, evals, last, step_calls, setups = [], [0], {}, [], []
+    decode = {"0": [0, 0.0], "m": [0, 0.0]}  # files, thread-seconds
+    lock = threading.Lock()
+    Trainer = trainer_mod.Trainer
+    Dataset = device_data.DeviceDataset
+    orig = (Trainer.train_epoch_mixed, Trainer._eval, Trainer._step,
+            Dataset.__init__, input_mod.read_image, resize_pad.resize_pad)
+    orig_epoch, orig_eval, orig_step, orig_init, orig_read, orig_k1 = orig
+
+    def epoch(self, stores, idxs, wts, stage, lrs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_epoch(self, stores, idxs, wts, stage, lrs)
+        loss_sum, correct, n = (float(v) for v in out)  # synchronises
+        epochs.append({"stage": stage, "lrs": list(lrs),
+                       "seconds": time.perf_counter() - t0,
+                       "steps": int(wts.shape[0]), "buckets": len(stores),
+                       "slots": int(wts.size), "images": n,
+                       "loss": loss_sum / n, "acc": correct / n})
+        last.update(trainer=self, args=(stores, idxs, wts, stage, lrs))
+        return out
+
+    def count_eval(self, parts, wts):
+        evals[0] += len(parts)
+        return orig_eval(self, parts, wts)
+
+    def record_k1(pixels, meta, th, tw, c, dtype, **kw):
+        # the main path's own launch; its inputs and output kept for later
+        out = orig_k1(pixels, meta, th, tw, c, dtype, **kw)
+        if kw.get("affine") is not None:
+            step_calls.append({
+                "pixels": pixels, "meta": meta.clone(), "shape": (th, tw, c),
+                "out": out.clone(),
+                **{k: None if kw.get(k) is None else kw[k].clone()
+                   for k in ("affine", "bright", "mean", "std")}})
+        return out
+
+    def first_step(self, parts, wts, stage, lrs):
+        if step_calls:
+            return orig_step(self, parts, wts, stage, lrs)
+        resize_pad.resize_pad = record_k1
+        try:
+            return orig_step(self, parts, wts, stage, lrs)
+        finally:
+            resize_pad.resize_pad = orig_k1
+
+    def timed_read(path):
+        t = time.perf_counter()
+        img = orig_read(path)
+        t = time.perf_counter() - t
+        with lock:
+            d = decode[Path(path).stem[-1]]
+            d[0] += 1
+            d[1] += t
+        return img
+
+    def timed_init(self, paths, *args, **kwargs):
+        t = time.perf_counter()
+        orig_init(self, paths, *args, **kwargs)
+        setups.append({"files": len(paths), "rows": self.num_rows,
+                       "bytes": self.nbytes,
+                       "seconds": time.perf_counter() - t})
+
+    (Trainer.train_epoch_mixed, Trainer._eval, Trainer._step,
+     Dataset.__init__, input_mod.read_image) = (epoch, count_eval, first_step,
+                                                timed_init, timed_read)
+    try:
+        resize_pad.launches = resize_pad.train_launches = 0
+        t0 = time.perf_counter()
+        model_dir = main(["train", str(ini)])  # the card: the default device
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"train": resize_pad.train_launches,
+                    "eval": resize_pad.launches}
+    finally:
+        (Trainer.train_epoch_mixed, Trainer._eval, Trainer._step,
+         Dataset.__init__, input_mod.read_image,
+         resize_pad.resize_pad) = orig
+
+    check(len(epochs) == TRAIN_EPOCHS,
+          f"{len(epochs)} whole-epoch calls for {TRAIN_EPOCHS} epochs")
+    check([e["stage"] for e in epochs] == [0, 1, 2, 2],
+          f"stages {[e['stage'] for e in epochs]}")
+    losses = [e["loss"] for e in epochs]
+    check(all(np.isfinite(losses)), f"train losses {losses}")
+    check(losses[-1] < losses[0], f"the train loss did not fall: {losses}")
+    want = sum(e["buckets"] * e["steps"] for e in epochs)
+    check(launches["train"] == want,
+          f"K1's train form launched {launches['train']} times for {want} "
+          "bucket-steps")
+    check(launches["eval"] == evals[0] and evals[0] > 0,
+          f"K1's eval form launched {launches['eval']} times for "
+          f"{evals[0]} eval batches")
+    # after the counts were read: these comparison launches count nowhere
+    check(len(step_calls) == epochs[0]["buckets"],
+          f"recorded {len(step_calls)} K1 launches of the first step for "
+          f"{epochs[0]['buckets']} buckets")
+    step_k1 = k1_step_check(step_calls)
+    missing = [f for f in TRAIN_ARTIFACTS if not (model_dir / f).is_file()]
+    check(not missing, f"the model directory lacks {missing}")
+    classes = checkpoint.read_class_names(model_dir)
+    check(len(classes) == TRAIN_CLASSES, f"classes {classes}")
+    rng = np.random.default_rng(5)
+    by_kind = {k: sorted(dataset.rglob(f"*_{k}.png")) for k in decode}
+    single = {k: decode_case([v[int(i)] for i in rng.choice(
+        len(v), DECODE_FILES, replace=False)]) for k, v in by_kind.items()}
+
+    # the trained directory through the port's prob on the card
+    out = WORK / "out_trained"
+    n_fixture = len(fixture_images())
+    main(["prob", "-r", str(FIXTURE.parent), "-m", str(model_dir), "-o",
+          str(out), "-b", "256"])
+    check_csvs(out, {FIXTURE: n_fixture}, classes)
+
+    warm = epochs[1:]
+    warm_s = sum(e["seconds"] for e in warm)
+    trainer, args = last["trainer"], last["args"]
+    profile = device_profile(lambda: trainer.train_epoch_mixed(*args),
+                             kinds=TRAIN_KINDS)
+    k1_share = profile["k1_share_of_device"]
+    out = {"phase": "train", "gpu": smi, "images": TRAIN_IMAGES,
+           "classes": TRAIN_CLASSES, "batch": 256, "dtype": "bfloat16",
+           "seconds": seconds, "epochs": epochs,
+           "set_up": {"write_pngs_s": write_s, "datasets": setups,
+                      # summed over the decode threads, by row filters
+                      "decode": {
+                          k: {"files": n, "thread_s": t,
+                              "us_per_image": 1e6 * t / max(n, 1)}
+                          for k, (n, t) in decode.items()},
+                      "decode_single_thread": single},
+           "k1_step_check": step_k1,
+           "launches": launches, "expected_train_launches": want,
+           "eval_batches": evals[0],
+           "warm_images_per_s": sum(e["images"] for e in warm) / warm_s,
+           "warm_slots_per_s": sum(e["slots"] for e in warm) / warm_s,
+           "warm_step_ms": 1e3 * warm_s / sum(e["steps"] for e in warm),
+           "profiled_epoch": {"steps": int(args[2].shape[0]),
+                              "k1_share_of_device": k1_share,
+                              **{k: v for k, v in profile.items()
+                                 if not k.startswith("k2")}},
+           "model_dir_files": sorted(f.name for f in model_dir.iterdir())}
+    emit(out)
+    return {"launches": launches, "trainer": trainer, "args": args,
+            "dataset": dataset, "model_dir": model_dir, "step_k1": step_k1}
+
+
+def phase_kernel_train(run: dict) -> dict:
+    """K1's train form against its plain version on ``TRAIN_SLOTS`` slots
+    of the largest store of the training run (rows of its last epoch,
+    repeated), float32, brightness on and off; returns the brightness-on
+    case."""
+    from sykepic_tpu_torch.ops import augment, preprocess, resize_pad
+
+    stores, idxs = run["args"][0], run["args"][1]
+    k = max(range(len(stores)), key=lambda i: stores[i]["canvas"][0].numel())
+    store = stores[k]
+    rows = np.unique(idxs[k])
+    rng = np.random.default_rng(9)
+    idx = torch.from_numpy(rng.choice(rows, TRAIN_SLOTS)).to(
+        store["canvas"].device)
+    meta = store["meta"].index_select(1, idx).contiguous()
+    lim = store["lim"].index_select(1, idx).float()
+    r = TRAIN_SLOTS
+    dev = meta.device
+
+    def sign():
+        return torch.from_numpy(rng.choice([-1.0, 1.0], r).astype(
+            np.float32)).to(dev)
+
+    draws = augment.Draws(
+        torch.from_numpy(rng.random(r) < 0.5).to(dev),
+        torch.from_numpy(rng.random(r) < 0.5).to(dev),
+        sign() * lim[0], sign() * lim[1],
+        torch.from_numpy(rng.choice([0.6, 1.4], r).astype(np.float32)).to(dev),
+        torch.from_numpy(rng.uniform(0.95, 1.1, r).astype(np.float32)).to(dev))
+    affine = augment.affine_rows(draws, 180, 180)
+    pix = store["canvas"]
+    m = meta.cpu().numpy().astype(np.int64)
+    # each stored ROI the slots read, once, and the slots' own inputs
+    _, first = np.unique(m[0], return_index=True)
+    read = int((m[3][first] * m[4][first]).sum()) + meta.nbytes + \
+        affine.nbytes
+    inside = int((m[5] * m[6]).sum())
+    cases = {}
+    for tag, bright in (("bright_on", draws.bright), ("bright_off", None)):
+        def call():
+            return resize_pad.resize_pad(pix, meta, 180, 180, 3,
+                                         torch.float32, affine=affine,
+                                         bright=bright)
+
+        before = resize_pad.train_launches
+        got = call()
+        torch.cuda.synchronize()
+        check(resize_pad.train_launches == before + 1,
+              "K1's train form did not launch")
+        plain = preprocess.resize_pad_plain(pix, meta, 180, 180, 3,
+                                            affine=affine, bright=bright)
+        err = float((got - plain).abs().max())
+        out = torch.empty_like(got)
+        check(err <= 1e-3 / 255, f"K1 train form {tag}: max |diff| {err}")
+        written = got.numel() * got.element_size()
+        nbytes = read + written + (0 if bright is None else bright.nbytes)
+        # per kernel the profiler recorded: a session may drop records
+        prof_ms, recorded = profiled_kernels(call, "resize_pad",
+                                             TIMED_LAUNCHES)
+        bytes_s = nbytes / MEMORY_BYTES_PER_S
+        ops_s = inside * 3 * K1_OPS_PER_PIXEL / F32_OPS_PER_S
+        cases[tag] = {
+            "max_abs_err": err,
+            "ms": time_ms(call, TIMED_LAUNCHES),
+            "device_ms": prof_ms / recorded if recorded else None,
+            "device_kernels_recorded": recorded,
+            "loop_ms": loop_ms(call, TIMED_LAUNCHES),
+            # back to back into one preallocated output: no allocation
+            "loop_ms_out": loop_ms(lambda: resize_pad.resize_pad(
+                pix, meta, 180, 180, 3, torch.float32, affine=affine,
+                bright=bright, out=out), TIMED_LAUNCHES),
+            "plain_ms": time_ms(lambda: preprocess.resize_pad_plain(
+                pix, meta, 180, 180, 3, affine=affine, bright=bright),
+                TIMED_PLAIN),
+            "bound_ms": 1e3 * max(bytes_s, ops_s),
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "bytes": nbytes}
+    emit({"phase": "kernel_resize_pad_train", "slots": r,
+          "store": list(pix.shape), **cases})
+    return cases["bright_on"]
+
+
+def phase_train_step_compare(run: dict) -> None:
+    """One float32 train step of the full-width model on the card and on
+    the CPU, from the same weights and batch (no augmentation, no
+    dropout)."""
+    import copy
+
+    from sykepic_tpu_torch.ingest import pack
+    from sykepic_tpu_torch.models import registry
+    from sykepic_tpu_torch.train.config import PreprocessSpec
+    from sykepic_tpu_torch.train.input import HostBatch
+    from sykepic_tpu_torch.train.trainer import Trainer
+    from sykepic_tpu_torch.utils import png
+
+    paths = sorted(run["dataset"].rglob("*.png"))
+    rng = np.random.default_rng(4)
+    picks = [paths[int(i)] for i in rng.choice(len(paths), STEP_IMAGES,
+                                               replace=False)]
+    imgs = [pack.pre_shrink(png.read_png(p), 180, 180) for p in picks]
+    bh, bw = pack.bucket_for(max(i.shape[0] for i in imgs),
+                             max(i.shape[1] for i in imgs),
+                             pack.DEFAULT_BUCKETS)
+    canvas = np.zeros((len(imgs), bh, bw), np.uint8)
+    for j, img in enumerate(imgs):
+        canvas[j, :img.shape[0], :img.shape[1]] = img
+    labels = np.array([int(p.parent.name.split("_")[1]) for p in picks],
+                      np.int32)
+    batch = HostBatch(canvas, np.array([i.shape[0] for i in imgs], np.int32),
+                      np.array([i.shape[1] for i in imgs], np.int32),
+                      labels, np.ones(len(imgs), np.float32), picks)
+    spec = PreprocessSpec(180, 180, 3, border="mode")
+    model = registry.init_weights(registry.build_model(
+        "resnet18", TRAIN_CLASSES, head=(256, 128)), seed=1)
+    lrs = (1e-3, 1e-4, 1e-5)
+    out = {}
+    for where, m in (("cpu", copy.deepcopy(model)), ("cuda", model)):
+        t = Trainer(m, optimizer="Adam", preprocess_spec=spec, device=where,
+                    dtype="float32")
+        t0 = time.perf_counter()
+        loss, _, n = t.train_batch(batch, 2, lrs)
+        loss = float(loss) / float(n)
+        out[where] = {"loss": loss, "seconds": time.perf_counter() - t0,
+                      "state": {k: v.detach().cpu() for k, v in
+                                t.model.state_dict().items()}}
+    rel_loss = abs(out["cuda"]["loss"] - out["cpu"]["loss"]) / abs(
+        out["cpu"]["loss"])
+    var_rel = max(float(((out["cuda"]["state"][k] - v).abs()
+                         / v.abs()).max())
+                  for k, v in out["cpu"]["state"].items()
+                  if k.endswith("running_var"))
+    emit({"phase": "train_step_card_vs_cpu", "images": STEP_IMAGES,
+          "canvas": [bh, bw], "loss_cpu": out["cpu"]["loss"],
+          "loss_card": out["cuda"]["loss"], "loss_rel_diff": rel_loss,
+          "running_var_max_rel_diff": var_rel,
+          "seconds_cpu": out["cpu"]["seconds"],
+          "seconds_card": out["cuda"]["seconds"]})
+    check(rel_loss <= STEP_LOSS_RTOL, f"train step loss differs: {rel_loss}")
+    check(var_rel <= STEP_VAR_RTOL,
+          f"train step running_var differs: {var_rel}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -1010,6 +1559,9 @@ def main() -> int:
     check(k2_launches["warp"] > 0, "the fused path never launched K2's warp "
           "form")
     timed("pipeline_card_vs_cpu", phase_pipeline_compare, model_dir)
+    run = timed("train", phase_train, smi)
+    k1_train = timed("kernel_resize_pad_train", phase_kernel_train, run)
+    timed("train_step_card_vs_cpu", phase_train_step_compare, run)
     emit({"phase_seconds": seconds})
     k = main_case["f32"]
     emit({"kernels": [{
@@ -1024,6 +1576,25 @@ def main() -> int:
         "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
+        "library_ms": None,
+    }, {
+        # K1's train form: launches over the train run (one per bucket and
+        # step); times on 2,048 slots of its largest store, brightness on
+        "name": "resize_pad_train",
+        "route": "cuda",
+        "source": "sykepic_tpu_torch/csrc/resize_pad.cu",
+        "replaces": "sykepic_tpu/ops/pallas_preprocess.py:114",
+        "launches": run["launches"]["train"],
+        "max_abs_err": k1_train["max_abs_err"],
+        # every bucket's launch of the first train step, f32, on its inputs
+        "step_buckets_checked": run["step_k1"]["buckets"],
+        "step_max_abs_err": run["step_k1"]["max_abs_err_f32"],
+        "ms": k1_train["ms"],
+        "device_ms": k1_train["device_ms"],
+        "loop_ms": k1_train["loop_ms"],
+        "plain_ms": k1_train["plain_ms"],
+        "bound_ms": k1_train["bound_ms"],
+        "bound_by": k1_train["bound_by"],
         "library_ms": None,
     }, {
         # ms, plain_ms and bound_ms: the seven floods of the first fused

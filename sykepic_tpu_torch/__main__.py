@@ -1,9 +1,10 @@
 """CLI entry point: ``python -m sykepic_tpu_torch`` (the port of
 ``sykepic_tpu/__main__.py``).
 
-The port carries the ``prob`` and ``pipeline`` sub-commands, with the JAX
-package's argument surface plus ``--device``::
+The port carries the ``train``, ``prob`` and ``pipeline`` sub-commands,
+with the JAX package's argument surface plus ``--device``::
 
+    python -m sykepic_tpu_torch train CONFIG.ini [--device cuda|cpu]
     python -m sykepic_tpu_torch prob -r DIR -m MODEL -o OUT [-b N] [-f]
                                      [--device cuda|cpu]
     python -m sykepic_tpu_torch pipeline -r DIR -m MODEL -o OUT
@@ -11,8 +12,8 @@ package's argument surface plus ``--device``::
                                      --device-features [--device cuda|cpu]
 
 ``pipeline`` runs only with ``--device-features`` (the fused on-device
-pass); its host-thread mode and the other sub-commands are ROADMAP slices
-3 and 5.
+pass); its host-thread mode, ``train``'s ``--save-images``/``--dist``/
+``--collage`` and the other sub-commands are ROADMAP Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -39,6 +40,27 @@ def main(argv=None):
         required=True,
         dest="sub-command",
         help="sykepic-tpu-torch {sub-command} -h for more information",
+    )
+
+    train_parser = subparsers.add_parser(
+        "train", description="Train neural network classifiers"
+    )
+    train_parser.set_defaults(func=_train)
+    train_parser.add_argument("config", help="Path to config file")
+    train_parser.add_argument(
+        "--collage", nargs=3, metavar=("ROWS", "COLUMNS", "PNG"),
+        help="Save a ROWS x COLUMNS grid of transformed images to PNG "
+        "(not ported yet)",
+    )
+    train_parser.add_argument(
+        "--dist", metavar="FILE",
+        help="Save a class distribution plot to FILE (not ported yet)")
+    train_parser.add_argument(
+        "--save-images", metavar="DIR",
+        help="Extract train, test, val images to this path (not ported yet)")
+    train_parser.add_argument(
+        "--device", default="cuda",
+        help="cuda (default; fails without a card) or cpu",
     )
 
     prob_parser = subparsers.add_parser(
@@ -130,6 +152,12 @@ def main(argv=None):
 
     args = parser.parse_args(argv)
     return args.func(args)
+
+
+def _train(args):
+    from .train import loop
+
+    return loop.main(args)
 
 
 def _prob(args):

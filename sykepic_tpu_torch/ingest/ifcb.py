@@ -29,7 +29,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..utils import logger
+from ..utils import logger, png
 from ..utils.timefmt import sample_to_datetime  # noqa: F401  (re-export)
 
 log = logger.get_logger("ifcb")
@@ -180,18 +180,7 @@ def raw_to_png(adc, roi, out_dir=None, force: bool = False) -> None:
     out_dir.mkdir(parents=True, exist_ok=force)
     rois = read_sample(adc.with_suffix(""), validate=True)
     for roi_number, img in rois.images():
-        _write_png(out_dir / f"{sample}_{roi_number:05}.png", img)
-
-
-def _write_png(path, img: np.ndarray) -> None:
-    try:
-        import cv2
-
-        cv2.imwrite(str(path), img)
-    except ImportError:  # pragma: no cover - cv2 is normally present
-        from PIL import Image
-
-        Image.fromarray(img).save(str(path))
+        png.write_png(out_dir / f"{sample}_{roi_number:05}.png", img)
 
 
 def extract_sample_images(sample, raw_dir, out_dir, exist_ok: bool = False) -> None:

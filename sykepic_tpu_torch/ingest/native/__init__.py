@@ -61,6 +61,9 @@ def lib():
     if _SO.is_file():
         try:
             recorded = _FP.read_text().strip()
+            # a .so older than its source lacks the source's newer symbols
+            if _SO.stat().st_mtime < (_HERE / "ifcb_native.cpp").stat().st_mtime:
+                recorded = ""
         except OSError:
             recorded = ""
         if recorded != fp:
@@ -143,6 +146,10 @@ def lib():
     handle.wire_encode.argtypes = [
         _u8p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
         _u8p, _u8p, _u8p, ctypes.c_longlong,
+    ]
+    handle.png_unfilter.restype = ctypes.c_longlong
+    handle.png_unfilter.argtypes = [
+        _u8p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int32, _u8p,
     ]
     _lib = handle
     return _lib
@@ -297,6 +304,22 @@ def shelf_blit_blocks(bases, buf_idx, offsets, heights, widths,
     if got < 0:
         return None
     return modes if want_modes else True
+
+
+def png_unfilter(rows, bpp):
+    """Undo the PNG row filters of ``rows``, a C-contiguous uint8 ``(h,
+    1 + stride)`` array (each row's filter byte, then its bytes): returns
+    the ``(h, stride)`` image bytes, or None if native is unavailable or a
+    row names an unknown filter (the caller's twin raises for it)."""
+    handle = lib()
+    if handle is None:
+        return None
+    h, stride = rows.shape[0], rows.shape[1] - 1
+    out = np.empty((h, stride), np.uint8)
+    _u8 = ctypes.POINTER(ctypes.c_uint8)
+    got = handle.png_unfilter(rows.ctypes.data_as(_u8), h, stride, bpp,
+                              out.ctypes.data_as(_u8))
+    return out if got == h else None
 
 
 def format_probs(roi_ids, probs):

@@ -341,6 +341,56 @@ long long shelf_blit_blocks(const unsigned char* const* bases,
     return n;
 }
 
+// Undo the PNG row filters (RFC 2083, section 6): `raw` holds h rows of a
+// filter byte then `stride` bytes, `bpp` bytes a pixel; `out` receives the
+// h * stride reconstructed bytes. Average and Paeth need each byte's
+// reconstructed left neighbour, a chain NumPy cannot vectorise along a row
+// (the twin in sykepic_tpu_torch/utils/png.py loops in Python). Returns h,
+// or -(y + 1) when row y names an unknown filter.
+long long png_unfilter(const unsigned char* raw, long long h,
+                       long long stride, int bpp, unsigned char* out) {
+    for (long long y = 0; y < h; ++y) {
+        const unsigned char* src = raw + y * (stride + 1) + 1;
+        unsigned char* cur = out + y * stride;
+        const unsigned char* prev = y ? cur - stride : nullptr;
+        switch (raw[y * (stride + 1)]) {
+        case 0:
+            std::memcpy(cur, src, (size_t)stride);
+            break;
+        case 1:  // Sub
+            for (long long i = 0; i < stride; ++i)
+                cur[i] = (unsigned char)(src[i] + (i >= bpp ? cur[i - bpp] : 0));
+            break;
+        case 2:  // Up
+            for (long long i = 0; i < stride; ++i)
+                cur[i] = (unsigned char)(src[i] + (prev ? prev[i] : 0));
+            break;
+        case 3:  // Average
+            for (long long i = 0; i < stride; ++i) {
+                int a = i >= bpp ? cur[i - bpp] : 0;
+                int b = prev ? prev[i] : 0;
+                cur[i] = (unsigned char)(src[i] + ((a + b) >> 1));
+            }
+            break;
+        case 4:  // Paeth
+            for (long long i = 0; i < stride; ++i) {
+                int a = i >= bpp ? cur[i - bpp] : 0;
+                int b = prev ? prev[i] : 0;
+                int c = (prev && i >= bpp) ? prev[i - bpp] : 0;
+                int p = a + b - c;
+                int pa = std::abs(p - a), pb = std::abs(p - b),
+                    pc = std::abs(p - c);
+                int pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+                cur[i] = (unsigned char)(src[i] + pred);
+            }
+            break;
+        default:
+            return -(y + 1);
+        }
+    }
+    return h;
+}
+
 // Lossless wire codec encoder (the C++ twin of wirecodec.encode's NumPy
 // path; byte-for-byte identical output, asserted in tests/test_wirecodec.py).
 // Per window: pick the predictor with fewest 4-bit exceptions — vertical

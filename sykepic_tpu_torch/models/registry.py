@@ -7,6 +7,9 @@ other families are ROADMAP slice 5.
 
 from __future__ import annotations
 
+import torch
+from torch import nn
+
 from . import resnet
 
 MODEL_REGISTRY = {
@@ -44,3 +47,32 @@ def build_model(name: str, num_classes: int, head=(256, 128), dropout=()):
         head=tuple(head),
         dropout=tuple(tuple(d) for d in dropout),
     )
+
+
+# flax's lecun_normal: a normal truncated at two standard deviations, scaled
+# so the kept part has variance 1 / fan_in (jax.nn.initializers)
+_TRUNC_STD = 0.87962566103423978
+
+
+def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Seeded random initialisation in place, with the distributions the
+    JAX package's Flax modules draw from (``models/registry.py::
+    init_variables``): convolution and linear weights lecun-normal
+    (truncated normal, variance ``1 / fan_in``), biases zero, BatchNorm
+    scale 1, shift 0, running mean 0 and variance 1. The numbers come from
+    a ``torch.Generator`` seeded with ``seed``, so they are not JAX's."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
+                w = torch.empty(m.weight.shape)
+                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                      generator=g)
+                m.weight.copy_(w)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+    return model

@@ -9,6 +9,11 @@ with ``strict=True`` once its ``base.N`` prefixes are renamed
 (:func:`sykepic_tpu_torch.models.checkpoint.normalize_state_dict`).
 
 - BatchNorm eps 1e-5; inference uses running statistics (``.eval()``).
+  In training the running variance takes the BIASED batch variance, as
+  Flax's ``BatchNorm`` does (``nn.BatchNorm2d`` takes the unbiased one):
+  :class:`BatchNorm2d`.
+- Dropout in training draws its masks from the ``generator`` its owner sets
+  (:class:`Dropout`), so a seeded training run repeats.
 - Max-pool 3x3 / 2 with padding 1; global average pool.
 - The head is literally stacked ``Linear`` layers with no activations in
   between, with Dropout layers spliced in by index using Python
@@ -20,7 +25,9 @@ from __future__ import annotations
 from functools import partial
 from typing import Sequence
 
+import torch
 from torch import nn
+from torch.nn import functional as F
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1):
@@ -28,8 +35,50 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1):
                      groups=groups, bias=False)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training step updates the running
+    statistics as Flax's ``BatchNorm`` (momentum 0.9) does:
+    ``ra_mean = 0.9 ra_mean + 0.1 mean`` and ``ra_var = 0.9 ra_var + 0.1
+    var`` with the biased batch variance. ``nn.BatchNorm2d`` would fold in
+    the unbiased one, ``n / (n - 1)`` larger (72/71 at layer4 for a batch of
+    2 at 6x6). The batch statistics come out of the same ``F.batch_norm``
+    call that normalises (into zeroed buffers at momentum 1, which hold the
+    batch mean and the unbiased variance), so no extra pass over the
+    activations is made. Evaluation is ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        mean = torch.zeros_like(self.running_mean)
+        var_unbiased = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var_unbiased, self.weight, self.bias,
+                         training=True, momentum=1.0, eps=self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.mul_(0.9).add_(0.1 * mean)
+            self.running_var.mul_(0.9).add_(
+                0.1 * (var_unbiased * ((n - 1) / n)))
+        return y
+
+
+class Dropout(nn.Dropout):
+    """``nn.Dropout`` that draws its training mask from ``self.generator``
+    (set by the trainer) instead of the global generator: keep with
+    probability ``1 - p``, scale the kept values by ``1 / (1 - p)``, as
+    Flax's ``Dropout``."""
+
+    generator: torch.Generator | None = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0 or self.generator is None:
+            return super().forward(x)
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+
+
 def _bn(c: int):
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+    return BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
 class BasicBlock(nn.Module):
@@ -106,8 +155,14 @@ class Head(nn.Sequential):
         layers: list[nn.Module] = [nn.Linear(widths[i], widths[i + 1])
                                    for i in range(len(widths) - 1)]
         for idx, p in dropout:
-            layers.insert(int(idx), nn.Dropout(p))
+            layers.insert(int(idx), Dropout(p))
         super().__init__(*layers)
+
+    def dropout_spec(self) -> list[tuple[int, float]]:
+        """The ``(index, p)`` spec that rebuilds this head: each Dropout at
+        its final index (inserting them in ascending order puts each back
+        there)."""
+        return [(i, m.p) for i, m in enumerate(self) if isinstance(m, Dropout)]
 
 
 class ResNet(nn.Module):

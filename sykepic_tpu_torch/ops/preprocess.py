@@ -27,6 +27,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import augment
+
+# ImageNet statistics of torchvision's Normalize (reference config.py:55-56);
+# only the TRAIN path applies them
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
 # Rows of the (10, R) int32 slot-metadata pack that the engine uploads and
 # the kernel reads: window (or canvas) index, origin, ROI extent, resize
 # geometry, border fill.
@@ -94,21 +101,29 @@ def border_values(canvas, heights, widths, border_mode: str) -> np.ndarray:
     raise ValueError(f"Unknown border mode: {border_mode}")
 
 
-def _axis_taps(size_out: int, pad, n_new, src):
+def _axis_taps(size_out: int, pad, n_new, src, q=None):
     """Per slot and output coordinate along one axis: the two source taps
-    ``(i0, i1)`` (ROI-local, clamped to ``[0, src - 1]``) and their weights.
+    ``(i0, i1)`` (ROI-local, clamped to ``[0, src - 1]``), their weights
+    and the inside flag.
 
-    The coordinate is ``(q - pad + 0.5) * (src / n_new) - 0.5`` in float32,
+    ``q`` is the ``(R, size_out)`` float32 output coordinate: the iota, or
+    ``a * i + b`` when the train form folds an augmentation affine in. The
+    coordinate is ``(q - pad + 0.5) * (src / n_new) - 0.5`` in float32,
     clamped to ``[0, src - 1]``, exactly as the JAX einsum builds it; the
     weights are that einsum's ``max(0, 1 - |f - t|)`` at ``t = floor(f)``
     and ``floor(f) + 1``, the second one zero when it falls past the ROI.
-    The CUDA kernel repeats these float steps one by one, in this order.
+    ``inside`` compares the float ``q`` with ``pad`` and ``pad + n_new``
+    (``sykepic_tpu/ops/preprocess.py:260-270``), so a flipped or zoomed axis
+    keeps its border. The CUDA kernel repeats these float steps one by one,
+    in this order.
     """
-    q = torch.arange(size_out, dtype=torch.float32, device=pad.device)
+    if q is None:
+        q = torch.arange(size_out, dtype=torch.float32,
+                         device=pad.device)[None, :]
     padf = pad.to(torch.float32)[:, None]
     srcf = src.to(torch.float32)[:, None]
     ratio = srcf / n_new.to(torch.float32)[:, None]
-    f = (q[None, :] - padf + 0.5) * ratio - 0.5
+    f = (q - padf + 0.5) * ratio - 0.5
     f = torch.minimum(torch.clamp(f, min=0.0), srcf - 1.0)
     t0 = torch.floor(f)
     t1 = t0 + 1.0
@@ -116,15 +131,30 @@ def _axis_taps(size_out: int, pad, n_new, src):
     w1 = torch.where(t1 < srcf, 1.0 - (t1 - f), torch.zeros_like(f))
     i0 = t0.to(torch.int64)
     i1 = torch.minimum(i0 + 1, src.to(torch.int64)[:, None] - 1)
-    return i0, i1, w0, w1
+    inside = (q >= padf) & (q < padf + n_new.to(torch.float32)[:, None])
+    return i0, i1, w0, w1, inside
+
+
+def _affine_coords(size_out: int, a, b):
+    """``(R, size_out)`` float32 ``a * i + b``: a multiply, then an add."""
+    i = torch.arange(size_out, dtype=torch.float32, device=a.device)
+    return a.to(torch.float32)[:, None] * i[None, :] + b.to(
+        torch.float32)[:, None]
 
 
 def _resize_pad_slots(flat, plane, width, win_idx, y0, x0, heights, widths,
                       new_h, new_w, pad_top, pad_left, border,
-                      target_h: int, target_w: int):
-    """One bounded piece of :func:`resize_pad_batch` (all 1-D args (R,))."""
-    yi0, yi1, wy0, wy1 = _axis_taps(target_h, pad_top, new_h, heights)
-    xi0, xi1, wx0, wx1 = _axis_taps(target_w, pad_left, new_w, widths)
+                      target_h: int, target_w: int, affine=None):
+    """One bounded piece of :func:`resize_pad_batch` (all 1-D args (R,);
+    ``affine`` (4, R) or None)."""
+    qy = qx = None
+    if affine is not None:
+        qy = _affine_coords(target_h, affine[0], affine[1])
+        qx = _affine_coords(target_w, affine[2], affine[3])
+    yi0, yi1, wy0, wy1, in_y = _axis_taps(target_h, pad_top, new_h, heights,
+                                          qy)
+    xi0, xi1, wx0, wx1, in_x = _axis_taps(target_w, pad_left, new_w, widths,
+                                          qx)
     base = (win_idx.to(torch.int64) * plane)[:, None, None]
     rows0 = ((y0.to(torch.int64)[:, None] + yi0) * width)[:, :, None]
     rows1 = ((y0.to(torch.int64)[:, None] + yi1) * width)[:, :, None]
@@ -141,12 +171,7 @@ def _resize_pad_slots(flat, plane, width, win_idx, y0, x0, heights, widths,
     left = wy0 * tap(rows0, cols0) + wy1 * tap(rows1, cols0)
     right = wy0 * tap(rows0, cols1) + wy1 * tap(rows1, cols1)
     val = wx0[:, None, :] * left + wx1[:, None, :] * right
-    qi = torch.arange(target_h, device=flat.device)[None, :, None]
-    qj = torch.arange(target_w, device=flat.device)[None, None, :]
-    pt = pad_top.to(torch.int64)[:, None, None]
-    pl = pad_left.to(torch.int64)[:, None, None]
-    inside = ((qi >= pt) & (qi < pt + new_h.to(torch.int64)[:, None, None])
-              & (qj >= pl) & (qj < pl + new_w.to(torch.int64)[:, None, None]))
+    inside = in_y[:, :, None] & in_x[:, None, :]
     fill = border.to(torch.float32)[:, None, None].expand_as(val)
     return torch.where(inside, val, fill)
 
@@ -159,10 +184,10 @@ def _on(a, device) -> torch.Tensor:
 
 def resize_pad_batch(canvas, heights, widths, new_h, new_w, pad_top,
                      pad_left, border, target_h: int, target_w: int,
-                     y_origin=None, x_origin=None, win_idx=None):
+                     y_origin=None, x_origin=None, win_idx=None, affine=None):
     """Plain twin of the resize/pad kernel: ``(R, target_h, target_w)``
     float32 on the 0-255 scale (the contract of the JAX
-    ``resize_pad_batch_mxu``).
+    ``resize_pad_batch_mxu``, ``affine_y``/``affine_x`` included).
 
     Slot ``r`` reads its ``(heights[r], widths[r])`` ROI at rows/cols
     ``[y_origin[r], ...)``, ``[x_origin[r], ...)`` of
@@ -170,8 +195,10 @@ def resize_pad_batch(canvas, heights, widths, new_h, new_w, pad_top,
     resizes it bilinearly to ``(new_h[r], new_w[r])`` and places it at
     ``(pad_top[r], pad_left[r])`` in a square filled with ``border[r]``.
     Taps are clamped to the ROI's own extent, so neither canvas padding nor
-    a shelf neighbour ever leaks in. All per-slot args are 1-D tensors (or
-    arrays) on any device; the work runs on ``canvas``'s device.
+    a shelf neighbour ever leaks in. ``affine`` (float32 ``(4, R)``, rows
+    ``a_y, b_y, a_x, b_x``) samples output row/column ``i`` at ``a * i + b``
+    instead of ``i``. All per-slot args are 1-D tensors (or arrays) on any
+    device; the work runs on ``canvas``'s device.
     """
     canvas = _on(canvas, None)
     dev = canvas.device
@@ -184,6 +211,7 @@ def resize_pad_batch(canvas, heights, widths, new_h, new_w, pad_top,
                else _on(win_idx, dev))
     y0 = zeros if y_origin is None else _on(y_origin, dev)
     x0 = zeros if x_origin is None else _on(x_origin, dev)
+    affine = None if affine is None else _on(affine, dev)
     flat = canvas.reshape(-1)
     out = torch.empty((r, target_h, target_w), dtype=torch.float32,
                       device=dev)
@@ -191,27 +219,41 @@ def resize_pad_batch(canvas, heights, widths, new_h, new_w, pad_top,
         sl = slice(s, s + _TWIN_SLOTS)
         out[sl] = _resize_pad_slots(
             flat, hc * wc, wc, win_idx[sl], y0[sl], x0[sl],
-            *(a[sl] for a in args), target_h, target_w)
+            *(a[sl] for a in args), target_h, target_w,
+            affine=None if affine is None else affine[:, sl])
     return out
 
 
 def resize_pad_plain(pixels, meta, target_h: int, target_w: int,
-                     num_chans: int, dtype=torch.float32):
+                     num_chans: int, dtype=torch.float32, affine=None,
+                     bright=None, mean=None, std=None):
     """The plain version of the kernel's whole contract: uint8 ``pixels``
     ``(N, H, W)`` and the ``(10, R)`` slot metadata (:data:`META_ROWS`) ->
     ``(R, target_h, target_w, num_chans)`` NHWC in ``dtype``, divided by
     255. Used by the kernel's wrapper for CPU tensors and held against the
-    kernel on the card."""
+    kernel on the card.
+
+    The train form, in the JAX train step's order
+    (``sykepic_tpu/train/trainer.py:171-207``): ``affine`` (float32
+    ``(4, R)``) folds flip/translate/zoom into the sampling coordinate;
+    ``bright`` (float32 ``(R,)``) is ``apply_brightness``'s multiply, clip
+    and floor; then ``/ 255``, the channel copy, and ``(x - mean) / std``
+    per channel when ``mean``/``std`` (float32 ``(num_chans,)``) are
+    given."""
     win_idx, y0, x0, h, w, nh, nw, pt, pl, border = meta
     img = resize_pad_batch(pixels, h, w, nh, nw, pt, pl, border,
                            target_h, target_w, y_origin=y0, x_origin=x0,
-                           win_idx=win_idx)
+                           win_idx=win_idx, affine=affine)
+    if bright is not None:
+        img = augment.apply_brightness(img, bright.to(img.device))
     # a true division, as the JAX package and the kernel do: torch turns a
     # division by a Python or 0-d scalar into a multiply by its reciprocal,
     # which differs in the last ulp, so the divisor is a 1-element tensor
     img = img / torch.full((1,), 255.0, device=img.device)
-    return img[..., None].expand(-1, -1, -1, num_chans).to(dtype) \
-        .contiguous()
+    img = img[..., None].expand(-1, -1, -1, num_chans)
+    if mean is not None:
+        img = (img - mean.to(img.device)) / std.to(img.device)
+    return img.to(dtype).contiguous()
 
 
 def slot_meta(heights, widths, new_h, new_w, pad_top, pad_left, border,

@@ -1,10 +1,14 @@
 """INI config parsing -> runtime objects (reference ``sykepic/train/config.py``).
 
 The ``config.ini`` copied into every model directory is the serialized
-model-architecture + preprocessing spec; inference re-reads it. Section and
-key names are the reference's, so existing config files work unchanged.
-This slice of the port carries what inference reads; the training half is
-ROADMAP slice 3.
+model-architecture + preprocessing spec; inference re-reads it and training
+reads the rest. Section and key names are the reference's, so existing
+config files work unchanged:
+
+    [image]  shape, augmentations, border, zoom_range, brightness_range,
+             max_rotation, batch_size, num_workers, imagenet_normalization
+    [model]  network, weights, head, dropout, id, path, exist_ok
+    [dataset]/[train]/[lr_warmup]/[lr_reduction] consumed by the train loop
 """
 
 from __future__ import annotations
@@ -38,6 +42,19 @@ class PreprocessSpec:
     imagenet_normalization: bool = False
 
 
+@dataclass
+class AugmentSpec:
+    """Train-path augmentation parameters (reference ``config.py:25-58``).
+
+    ``augmentations`` entries: flip, translate, zoom, rotate, brightness.
+    """
+
+    augmentations: tuple[str, ...] = ()
+    zoom_range: tuple[float, float] = (1.0, 1.0)
+    brightness_range: tuple[float, float] = (1.0, 1.0)
+    max_rotation: int = 0
+
+
 def get_preprocess_spec(config) -> PreprocessSpec:
     img_shape = get_img_shape(config)
     try:
@@ -51,6 +68,26 @@ def get_preprocess_spec(config) -> PreprocessSpec:
         border=config.get("image", "border"),
         imagenet_normalization=imagenet,
     )
+
+
+def get_augment_spec(config) -> AugmentSpec:
+    augs = tuple(
+        a.strip()
+        for a in config.get("image", "augmentations").split(",")
+        if a.strip()
+    )
+    spec = AugmentSpec(augmentations=augs)
+    if "zoom" in augs:
+        spec.zoom_range = tuple(
+            float(i) for i in config.get("image", "zoom_range").split(",")
+        )
+    if "brightness" in augs:
+        spec.brightness_range = tuple(
+            float(i) for i in config.get("image", "brightness_range").split(",")
+        )
+    if "rotate" in augs:
+        spec.max_rotation = config.getint("image", "max_rotation")
+    return spec
 
 
 def get_head_spec(config):
@@ -70,7 +107,10 @@ def get_network(config, num_classes: int):
 
     Returns ``(model, weights_spec)``; ``weights_spec`` mirrors the
     reference's ``weights`` option ("DEFAULT" for old configs) and matters
-    only when training starts.
+    only when training starts. The model holds float32 parameters; the
+    compute dtype of ``[train] dtype`` is an autocast around its forward
+    (:class:`sykepic_tpu_torch.train.trainer.Trainer`), where the JAX
+    package builds the Flax module with ``dtype=``.
     """
     network = config.get("model", "network")
     try:

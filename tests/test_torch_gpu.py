@@ -1,5 +1,6 @@
 """Kernels on the card against their plain versions (K1,
-``csrc/resize_pad.cu``; K2, ``csrc/flood.cu``). These need a CUDA card: a
+``csrc/resize_pad.cu``, in its eval and train forms; K2, ``csrc/flood.cu``),
+and one mixed train step on the card. These need a CUDA card: a
 CUDA kernel has no CPU mode, so here they skip. The file imports neither JAX
 nor the repo's ``conftest.py`` fixtures, so it also runs on a machine
 without JAX::
@@ -16,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from sykepic_tpu_torch.ops import flood, preprocess, resize_pad
+from sykepic_tpu_torch.ingest import pack
+from sykepic_tpu_torch.ops import augment, flood, preprocess, resize_pad
 
 ATOL = 1e-3 / 255
 
@@ -254,3 +256,143 @@ def test_flood_empty_batch(cuda):
     assert out.shape == (0, 48, 96) and steps.shape == (0,)
     assert (flood.launches, flood.warp_launches,
             flood.global_launches) == before
+
+
+def _train_inputs(rng, bucket, r=256, n=64):
+    """K1 train-form inputs on one canvas bucket: ``n`` stored images read
+    by ``r`` slots (rows repeat, as a store is read in place), affines with
+    both flips, zoom 0.6, 1.4 and drawn, translations at -limit, +limit
+    and drawn, brightness in [0.95, 1.1]."""
+    bh, bw = bucket
+    hs = rng.integers(1, min(bh, 180) + 1, n)
+    ws = rng.integers(1, min(bw, 180) + 1, n)
+    canvas = rng.integers(0, 256, (n, bh, bw), dtype=np.uint8)
+    geom = preprocess.compute_geometry(hs, ws, 180, 180)
+    border = rng.integers(0, 256, n)
+    rows = rng.integers(0, n, r)
+    meta = np.ascontiguousarray(preprocess.slot_meta(
+        hs, ws, *geom, border, win_idx=np.arange(n))[:, rows])
+    lim_x, lim_y = augment.translate_limits(hs, ws, geom[0], geom[1], 180,
+                                            180)
+    lim_x, lim_y = lim_x[rows], lim_y[rows]
+    sign = rng.choice([-1, 1, 0], r)
+    tx = np.where(sign == 0, rng.integers(-lim_x, lim_x + 1), sign * lim_x)
+    ty = np.where(sign == 0, rng.integers(-lim_y, lim_y + 1), sign * lim_y)
+    f = np.choose(rng.integers(0, 3, r),
+                  [np.full(r, 0.6), np.full(r, 1.4),
+                   np.round(rng.uniform(0.6, 1.4, r), 2)])
+    draws = augment.Draws(
+        torch.from_numpy(rng.random(r) < 0.5),
+        torch.from_numpy(rng.random(r) < 0.5),
+        torch.from_numpy(tx.astype(np.float32)),
+        torch.from_numpy(ty.astype(np.float32)),
+        torch.from_numpy(f.astype(np.float32)),
+        torch.from_numpy(rng.uniform(0.95, 1.1, r).astype(np.float32)))
+    return canvas, meta, augment.affine_rows(draws, 180, 180), draws.bright
+
+
+_NORM = (torch.tensor(preprocess.IMAGENET_MEAN),
+         torch.tensor(preprocess.IMAGENET_STD))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bucket", [b for b in pack.DEFAULT_BUCKETS
+                                    if b[0] <= 192 and b[1] <= 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bright,norm", [(True, False), (False, True),
+                                         (True, True)])
+def test_train_form_matches_plain_version(cuda, bucket, dtype, bright, norm):
+    canvas, meta, affine, br = _train_inputs(
+        np.random.default_rng(bucket[0] * bucket[1]), bucket)
+    kw = dict(affine=affine, bright=br if bright else None,
+              mean=_NORM[0] if norm else None,
+              std=_NORM[1] if norm else None)
+    on_card = {k: None if v is None else v.to(cuda) for k, v in kw.items()}
+    before = (resize_pad.launches, resize_pad.train_launches)
+    out = resize_pad.resize_pad(torch.from_numpy(canvas).to(cuda),
+                                torch.from_numpy(meta).to(cuda), 180, 180, 3,
+                                dtype, **on_card)
+    torch.cuda.synchronize()
+    assert (resize_pad.launches, resize_pad.train_launches) == (
+        before[0], before[1] + 1)
+    plain = preprocess.resize_pad_plain(torch.from_numpy(canvas),
+                                        torch.from_numpy(meta), 180, 180, 3,
+                                        **kw)
+    err = (out.cpu().float() - plain.to(dtype).float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= ATOL
+    else:
+        assert bool((err <= plain.to(dtype).float().abs() * 2.0 ** -7).all())
+
+
+@pytest.mark.gpu
+def test_train_form_identity_affine_is_the_eval_form(cuda):
+    # q = 1 * i + 0 is the iota exactly: the train form without an
+    # augmentation writes the eval form's bits
+    canvas, meta, _, _ = _train_inputs(np.random.default_rng(3), (96, 128))
+    r = meta.shape[1]
+    ident = torch.stack([torch.ones(r), torch.zeros(r), torch.ones(r),
+                         torch.zeros(r)]).to(cuda)
+    pix = torch.from_numpy(canvas).to(cuda)
+    m = torch.from_numpy(meta).to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        a = resize_pad.resize_pad(pix, m, 180, 180, 3, dtype)
+        b = resize_pad.resize_pad(pix, m, 180, 180, 3, dtype, affine=ident)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_train_form_writes_into_a_slice(cuda):
+    canvas, meta, affine, br = _train_inputs(np.random.default_rng(4),
+                                             (64, 128), r=40)
+    pix = torch.from_numpy(canvas).to(cuda)
+    m = torch.from_numpy(meta).to(cuda)
+    out = torch.full((50, 180, 180, 3), -1.0, device=cuda)
+    got = resize_pad.resize_pad(pix, m, 180, 180, 3, affine=affine.to(cuda),
+                                bright=br.to(cuda), out=out[5:45])
+    assert got.data_ptr() == out[5:45].data_ptr()
+    assert bool((out[:5] == -1).all()) and bool((out[45:] == -1).all())
+    want = resize_pad.resize_pad(pix, m, 180, 180, 3, affine=affine.to(cuda),
+                                 bright=br.to(cuda))
+    assert torch.equal(out[5:45], want)
+    with pytest.raises(ValueError):
+        resize_pad.resize_pad(pix, m, 180, 180, 3, affine=affine)  # on CPU
+    with pytest.raises(ValueError):
+        resize_pad.resize_pad(pix, m, 180, 180, 3, mean=_NORM[0].to(cuda))
+
+
+@pytest.mark.gpu
+def test_mixed_train_step_on_the_card(cuda, tmp_path):
+    from sykepic_tpu_torch.models import registry
+    from sykepic_tpu_torch.train.config import PreprocessSpec
+    from sykepic_tpu_torch.train.device_data import DeviceDataset
+    from sykepic_tpu_torch.train.trainer import Trainer
+    from sykepic_tpu_torch.utils import png
+
+    rng = np.random.default_rng(5)
+    paths, labels = [], []
+    for i in range(48):
+        cls = i % 2
+        h, w = ((rng.integers(10, 30), rng.integers(12, 40)) if cls == 0
+                else (rng.integers(70, 120), rng.integers(70, 120)))
+        p = tmp_path / f"img_{i:03}.png"
+        png.write_png(p, rng.integers(0, 256, (h, w), dtype=np.uint8))
+        paths.append(p)
+        labels.append(cls)
+    spec = PreprocessSpec(180, 180, 3, border="mode")
+    ds = DeviceDataset(paths, labels, spec, batch_size=16, seed=0,
+                       shuffle=True, device=cuda)
+    assert ds._use_mixed
+    model = registry.init_weights(
+        registry.build_model("resnet18", 2, head=(256, 128)), 0)
+    trainer = Trainer(model, optimizer="Adam", preprocess_spec=spec,
+                      augment_kwargs=augment.spec_kwargs(
+                          ("flip", "translate", "zoom", "brightness"),
+                          (0.6, 1.4), (0.95, 1.1), 0),
+                      device=cuda, dtype="bfloat16")
+    before = resize_pad.train_launches
+    batch = next(iter(ds))
+    loss, correct, n = trainer.train_batch(batch, 0, (1e-3, 0.0, 0.0))
+    torch.cuda.synchronize()
+    assert resize_pad.train_launches == before + len(batch.stores)
+    assert np.isfinite(float(loss)) and float(n) == float(batch.weights.sum())

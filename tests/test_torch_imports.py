@@ -1,6 +1,7 @@
 """The port stands alone: ``sykepic_tpu_torch`` imports with JAX, flax,
-optax and the JAX package blocked, no source of it names them, and its
-entry points never carry on quietly on the CPU when a card was asked for."""
+optax, the JAX package, cv2 and scikit-learn blocked (the port depends on
+none of them), no source of it names them, and its entry points never
+carry on quietly on the CPU when a card was asked for."""
 
 import ast
 import subprocess
@@ -12,7 +13,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "sykepic_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "sykepic_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "sykepic_tpu", "cv2", "sklearn")
 
 
 @pytest.fixture(autouse=True)
@@ -46,7 +47,11 @@ def test_imports_with_jax_blocked():
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         .removesuffix(".__init__")
         for p in PACKAGE.rglob("*.py"))
-    assert len(names) >= 25  # every module, not only the top level
+    assert len(names) >= 37  # every module, not only the top level
+    for new in ("sykepic_tpu_torch.train.loop", "sykepic_tpu_torch.utils.png",
+                "sykepic_tpu_torch.ops.augment",
+                "sykepic_tpu_torch.train.device_data"):
+        assert new in names
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKER, *names], cwd=REPO,
         capture_output=True, text=True, timeout=120,
