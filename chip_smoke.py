@@ -98,6 +98,24 @@ Phases, one JSON object per line on stdout:
    dropout) of the full-width model on 32 images of the set, on the card
    and on the CPU from the same weights: loss within 1e-4 relative, the
    BatchNorm running variances within 1e-3 relative.
+11. ``families``: seven other families at the full width of the repo's
+   config (3x180x180, head 256,128, 50 classes; seeded random weights and
+   BatchNorm running statistics, ``best_state.msgpack`` written by the
+   port): ``efficientnet_b0``, ``efficientnet_v2_s``, ``mobilenet_v3_large``,
+   ``vgg16_bn``, ``alexnet``, ``convnext_tiny``, ``regnet_y_400mf``. Each goes
+   through ``prob`` on the card (float32, ``-b 2048``) on the fixture sample
+   plus 4,000 synthetic ROIs in the same size mix, cold and warm, every CSV
+   checked and K1 launched once per dispatch; then its on-chip rate, a
+   profiled warm stream (busy share, the three largest device-time kinds)
+   and the card against the CPU on 66 ROIs (within 1.2e-5, the same
+   argmax). Then ``train`` for two epochs (stages 0 and 1, bf16, batch 256,
+   Adam) on the ``train`` phase's set: ``efficientnet_b0`` with flip,
+   translate, zoom, rotate (``max_rotation`` 10) and brightness, so K1's
+   eval form and the rotation warp run on the card, and ``convnext_tiny``
+   with K1's train form; the loss must fall, K1's launches by form must
+   equal the bucket-steps and eval batches, and ``prob`` must read the
+   trained directory. Printed: images/s of epoch 2 and of one more steady
+   epoch, and a profiled epoch's device time by kind.
 
 Then the ``kernels`` line (K1's eval form, K1's train form, K2), the
 ``nvidia-smi`` line, and last
@@ -1515,6 +1533,241 @@ def phase_train_step_compare(run: dict) -> None:
           f"train step running_var differs: {var_rel}")
 
 
+# -- the other model families -------------------------------------------------
+
+FAMILY_NETS = ("efficientnet_b0", "efficientnet_v2_s", "mobilenet_v3_large",
+               "vgg16_bn", "alexnet", "convnext_tiny", "regnet_y_400mf")
+FAMILY_ROIS = 4000
+FAMILY_COMPARE = 64  # ROIs of each family's card-against-CPU comparison
+FAMILY_TRAIN = (
+    ("efficientnet_b0", "flip, translate, zoom, rotate, brightness"),
+    ("convnext_tiny", "flip, translate, zoom, brightness"))
+FAMILY_TRAIN_EPOCHS = 2  # warmup steps 1/2: stages 0 then 1
+
+
+def build_family_dir(root: Path, name: str) -> Path:
+    """The repo's full-width config (3x180x180, head 256,128, 50 classes)
+    with ``network = name``: weights from the port's seeded init, random
+    BatchNorm running statistics (ConvNeXt: ``layer_scale`` of order 0.1
+    instead of its 1e-6 init, so that its blocks count), the last head
+    layer scaled so that the logits of random images spread with a
+    standard deviation of 8, 2.1 after ``prob``'s ``ln(1.3)`` temperature
+    (at the init's scale every family's probabilities were near 1/50, and
+    the card-against-CPU argmax check near empty), written as
+    ``best_state.msgpack`` by the port's writer."""
+    from sykepic_tpu_torch.models import checkpoint, registry
+    from sykepic_tpu_torch.models.convnext import CNBlock
+    from sykepic_tpu_torch.models.resnet import BatchNorm2d
+    from sykepic_tpu_torch.train import config as tcfg
+
+    d = root / name
+    d.mkdir(parents=True)
+    shutil.copy(MODEL_SRC / "class_names.txt", d)
+    text = (MODEL_SRC / "config.ini").read_text()
+    check("network = resnet18" in text, "the model config names no network")
+    (d / "config.ini").write_text(text.replace("network = resnet18",
+                                               f"network = {name}"))
+    model, _ = tcfg.get_network(tcfg.read_config(d / "config.ini"),
+                                len(checkpoint.read_class_names(d)))
+    registry.init_weights(model, seed=0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm2d):
+                m.running_mean.copy_(torch.randn(m.num_features,
+                                                 generator=g) * 0.05)
+                m.running_var.copy_(0.75 + 0.5 * torch.rand(
+                    m.num_features, generator=g))
+            elif isinstance(m, CNBlock):
+                m.layer_scale.copy_(0.05 + 0.1 * torch.rand(
+                    m.layer_scale.shape, generator=g))
+        logits = model.eval()(torch.rand(8, 3, 180, 180, generator=g))
+        model.head[-1].weight.mul_(8.0 / float(logits.std()))
+    checkpoint.save_variables(d / checkpoint.BEST_STATE,
+                              checkpoint.to_flax_variables(
+                                  model.state_dict(), name))
+    return d
+
+
+def top_kinds(profile: dict, n: int = 3) -> list:
+    kinds = sorted(profile["device_ms_by_kind"].items(), key=lambda kv: -kv[1])
+    return [{"kind": k, "ms": ms} for k, ms in kinds[:n]]
+
+
+def family_prob(name: str, raw: Path, counts: dict, small: list,
+                smi: str) -> int:
+    """One family's model dir through ``prob`` on the card (cold, then
+    warm), its on-chip rate, a profiled warm stream, and the card against
+    the CPU; returns K1's launches in the cold run."""
+    from sykepic_tpu_torch.__main__ import main
+    from sykepic_tpu_torch.compute.engine import Classifier
+    from sykepic_tpu_torch.models import checkpoint
+
+    model_dir = build_family_dir(WORK / "families", name)
+    classes = checkpoint.read_class_names(model_dir)
+    samples = list(counts)
+    n_rois = sum(counts.values())
+    out = WORK / "out_families" / name
+
+    def cli(force):
+        main(["prob", "-r", str(raw), "-m", str(model_dir), "-o", str(out),
+              "-b", str(BATCH)] + (["-f"] if force else []))
+
+    cold_s, launches = timed_run(lambda: cli(False), {})
+    dispatches = count_dispatches(samples, "shelf")
+    check_csvs(out, counts, classes)
+    check(launches == dispatches and launches > 0,
+          f"{name}: K1 launched {launches} times for {dispatches} dispatches")
+    warm_s, _ = timed_run(lambda: cli(True), {})
+    check_csvs(out, counts, classes)
+
+    clf = Classifier(model_dir, batch_size=BATCH)
+    n, per_pass = clf.onchip_rate(sample_blocks(samples))
+
+    def stream():
+        for _ in clf.classify_blocks(sample_blocks(samples)):
+            pass
+
+    profile = device_profile(stream)
+
+    cpu = classify(Classifier(model_dir, batch_size=BATCH, device="cpu"),
+                   small)
+    card = classify(clf, small)
+    check(cpu.keys() == card.keys(), f"{name}: ROI sets differ")
+    keys = sorted(cpu)
+    pc = np.stack([cpu[k] for k in keys])
+    pg = np.stack([card[k] for k in keys])
+    top2 = np.sort(pc, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * PROB_BOUND
+    diff = float(np.abs(pc - pg).max())
+    check(diff <= PROB_BOUND, f"{name} card vs CPU: max |dp| {diff}")
+    check((pc.argmax(1) == pg.argmax(1))[clear].all(),
+          f"{name} card vs CPU: argmax differs")
+    emit({"phase": "families_prob", "network": name, "gpu": smi,
+          "rois": n_rois, "dispatches": dispatches, "k1_launches": launches,
+          "cold_s": cold_s, "warm_s": warm_s,
+          "warm_e2e_rois_per_s": n_rois / warm_s,
+          "onchip_rois_per_s": n / per_pass,
+          "device_busy_share": profile["device_busy_share"],
+          "k1_share_of_device": profile["k1_share_of_device"],
+          "top_device_kinds": top_kinds(profile),
+          "card_vs_cpu": {"rois": len(keys), "max_abs_dp": diff,
+                          "argmax_agree": float(
+                              (pc.argmax(1) == pg.argmax(1)).mean()),
+                          "ties_within_two_quanta": int((~clear).sum()),
+                          "mean_top_prob": float(pc.max(1).mean())}})
+    return launches
+
+
+def family_train(name: str, augmentations: str, dataset: Path,
+                 smi: str) -> dict:
+    """``train`` at full width on the train phase's set for two epochs
+    (stages 0 and 1); returns K1's launches by form."""
+    from sykepic_tpu_torch.__main__ import main
+    from sykepic_tpu_torch.models import checkpoint
+    from sykepic_tpu_torch.ops import resize_pad
+    from sykepic_tpu_torch.train import trainer as trainer_mod
+
+    root = WORK / "families_train" / name
+    root.mkdir(parents=True)
+    ini = root / "train.ini"
+    text = TRAIN_INI.format(dataset=dataset, models=root / "models",
+                            epochs=FAMILY_TRAIN_EPOCHS)
+    text = text.replace("network = resnet18", f"network = {name}").replace(
+        "augmentations = flip, translate, zoom, brightness",
+        f"augmentations = {augmentations}")
+    ini.write_text(text)
+    epochs, last, evals = [], {}, [0]
+    Trainer = trainer_mod.Trainer
+    orig, orig_eval = Trainer.train_epoch_mixed, Trainer._eval
+
+    def epoch(self, stores, idxs, wts, stage, lrs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(self, stores, idxs, wts, stage, lrs)
+        loss_sum, _, n = (float(v) for v in out)
+        epochs.append({"stage": stage, "seconds": time.perf_counter() - t0,
+                       "steps": int(wts.shape[0]), "buckets": len(stores),
+                       "images": n, "loss": loss_sum / n})
+        last.update(trainer=self, args=(stores, idxs, wts, stage, lrs))
+        return out
+
+    def count_eval(self, parts, wts):
+        evals[0] += len(parts)
+        return orig_eval(self, parts, wts)
+
+    Trainer.train_epoch_mixed, Trainer._eval = epoch, count_eval
+    try:
+        resize_pad.launches = resize_pad.train_launches = 0
+        t0 = time.perf_counter()
+        model_dir = main(["train", str(ini)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"eval_form": resize_pad.launches,
+                    "train_form": resize_pad.train_launches}
+    finally:
+        Trainer.train_epoch_mixed, Trainer._eval = orig, orig_eval
+    check([e["stage"] for e in epochs] == [0, 1],
+          f"{name}: stages {[e['stage'] for e in epochs]}")
+    losses = [e["loss"] for e in epochs]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{name}: train losses {losses}")
+    bucket_steps = sum(e["buckets"] * e["steps"] for e in epochs)
+    # the rotation route resizes with K1's eval form (0-255 scale), one
+    # launch per bucket and step, beside the eval batches' launches
+    if "rotate" in augmentations:
+        want = {"eval_form": bucket_steps + evals[0], "train_form": 0}
+    else:
+        want = {"eval_form": evals[0], "train_form": bucket_steps}
+    check(launches == want and evals[0] > 0,
+          f"{name}: K1 launched {launches} for {want}")
+    out = WORK / "out_families_trained" / name
+    main(["prob", "-r", str(FIXTURE.parent), "-m", str(model_dir), "-o",
+          str(out), "-b", "256"])
+    check_csvs(out, {FIXTURE: len(fixture_images())},
+               checkpoint.read_class_names(model_dir))
+    # one more epoch on the last epoch's plan, timed alone, then one under
+    # the profiler: epoch 2 was stage 1's first and carried its warm-up
+    trainer, args = last["trainer"], last["args"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steady = float(trainer.train_epoch_mixed(*args)[2])
+    steady_s = time.perf_counter() - t0
+    profile = device_profile(lambda: trainer.train_epoch_mixed(*args),
+                             kinds=TRAIN_KINDS)
+    warm = epochs[1]
+    emit({"phase": "families_train", "network": name, "gpu": smi,
+          "augmentations": augmentations, "batch": 256, "dtype": "bfloat16",
+          "seconds": seconds, "epochs": epochs, "launches": launches,
+          "bucket_steps": bucket_steps, "eval_batches": evals[0],
+          "epoch_2_images_per_s": warm["images"] / warm["seconds"],
+          "steady_epoch_s": steady_s,
+          "warm_images_per_s": steady / steady_s,
+          "profiled_epoch": {
+              "steps": int(args[2].shape[0]),
+              "wall_ms": profile["wall_ms"],
+              "device_busy_ms": profile["device_busy_ms"],
+              "device_busy_share": profile["device_busy_share"],
+              "k1_share_of_device": profile["k1_share_of_device"],
+              "device_ms_by_kind": profile["device_ms_by_kind"],
+              "top": profile["top"][:5]}})
+    return launches
+
+
+def phase_families(run: dict, smi: str) -> dict:
+    """The seven families through ``prob`` and two through ``train``;
+    returns K1's launches of each family's ``prob`` run and train run."""
+    raw = WORK / "raw_families"
+    counts = build_raw(raw, FAMILY_ROIS, seed=43, start=datetime(2020, 1, 1))
+    small = list(build_raw(WORK / "raw_families_compare", FAMILY_COMPARE,
+                           seed=8, start=datetime(2020, 6, 1)))
+    prob = {name: family_prob(name, raw, counts, small, smi)
+            for name in FAMILY_NETS}
+    train = {name: family_train(name, augs, run["dataset"], smi)
+             for name, augs in FAMILY_TRAIN}
+    return {"prob": prob, "train": train}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -1562,6 +1815,7 @@ def main() -> int:
     run = timed("train", phase_train, smi)
     k1_train = timed("kernel_resize_pad_train", phase_kernel_train, run)
     timed("train_step_card_vs_cpu", phase_train_step_compare, run)
+    families = timed("families", phase_families, run, smi)
     emit({"phase_seconds": seconds})
     k = main_case["f32"]
     emit({"kernels": [{
@@ -1571,6 +1825,11 @@ def main() -> int:
         "replaces": "sykepic_tpu/ops/pallas_preprocess.py:114",
         "launches": launches,
         "pipeline_launches": fused_launches["k1"],
+        # each family's prob run, counted from 0 (a positive count each)
+        "families_launches": families["prob"],
+        # the rotation route of efficientnet_b0's training takes the eval
+        # form; convnext_tiny's training the train form
+        "families_train_launches": families["train"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],

@@ -151,8 +151,8 @@ class Classifier:
             torch.backends.cuda.matmul.allow_tf32 = False
         model, _ = train_config.get_network(self.config, len(self.classes))
         _, dropout = train_config.get_head_spec(self.config)
-        model.load_state_dict(
-            checkpoint.load_model_state(model_dir, dropout), strict=True)
+        model.load_state_dict(checkpoint.load_model_state(
+            model_dir, dropout, network=model.network), strict=True)
         # weights go to the device once; channels_last suits the NHWC
         # pixels the kernel writes
         self.model = model.to(self.device,

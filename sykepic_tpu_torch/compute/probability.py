@@ -35,7 +35,7 @@ log = logger.get_logger("prob")
 
 _IMAGES_LATER = (
     "image inputs (--image-dir/--images) are not ported yet: they need a "
-    "PNG reader and come with the port's remaining CLI (ROADMAP slice 5)")
+    "PNG reader and come with the port's remaining CLI (ROADMAP slice 6)")
 
 
 def _progress(iterable, desc: str):

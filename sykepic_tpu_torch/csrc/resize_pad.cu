@@ -2,7 +2,9 @@
 //
 // Eval form: per-slot bilinear resize of a uint8 ROI, pad to the square
 // target with the slot's border value, /255, replication to the channel
-// count and an NHWC store (f32 or bf16).
+// count and an NHWC store (f32 or bf16). With `divisor` 1 instead of 255 it
+// keeps the 0-255 scale (exactly: a division by 1 is exact), which the
+// train step's rotation route warps and floors before it divides.
 //
 // Train form (any of `affine`, `bright`, `mean`/`std` given): the same, with
 // the training augmentations folded in as the JAX train step folds them
@@ -39,7 +41,7 @@
 // source coordinate, and hence which tap is chosen at exact boundaries,
 // matches the twin and the JAX kernel bit for bit. q = a*i + b is a multiply
 // then an add. The coordinate divides first (src / n_new), then multiplies;
-// the result divides by 255, never multiplies by its reciprocal. Without an
+// the result divides by `divisor`, never multiplies by its reciprocal. Without an
 // affine, q is the iota and the eval form's arithmetic is unchanged.
 //
 // Interface: a plain C function (loaded with ctypes). It launches on the
@@ -115,7 +117,7 @@ template <typename OutT>
 __global__ void __launch_bounds__(kThreads)
 resize_pad_kernel(const uint8_t* __restrict__ pix, int n_win, int win_h,
                   int win_w, const int32_t* __restrict__ meta, int n_slots,
-                  int target_h, int target_w, int num_chans,
+                  int target_h, int target_w, int num_chans, float divisor,
                   const float* __restrict__ affine,
                   const float* __restrict__ bright,
                   const float* __restrict__ mean,
@@ -182,7 +184,7 @@ resize_pad_kernel(const uint8_t* __restrict__ pix, int n_win, int win_h,
       // brightness, clip and the uint8-cast truncation (augment.py:211-214)
       v = floorf(fminf(fmaxf(__fmul_rn(v, br), 0.0f), 255.0f));
     }
-    v = __fdiv_rn(v, 255.0f);
+    v = __fdiv_rn(v, divisor);
     OutT* o = dst + static_cast<size_t>(p) * num_chans;
     if (mean == nullptr) {
       for (int c = 0; c < num_chans; ++c) store(o + c, v);
@@ -200,14 +202,15 @@ extern "C" {
 
 // pix: uint8 (n_win, win_h, win_w); meta: int32 (10, n_slots);
 // out: (n_slots, target_h, target_w, num_chans) float32 (out_bf16 == 0) or
-// bfloat16 (out_bf16 == 1). The train form's inputs may each be null:
+// bfloat16 (out_bf16 == 1), each value divided by `divisor` (255, or 1 for
+// the 0-255 scale). The train form's inputs may each be null:
 // affine float32 (4, n_slots) = (a_y, b_y, a_x, b_x); bright float32
 // (n_slots,); mean and stdev float32 (num_chans,), num_chans <= 8, both or
 // neither. Returns cudaGetLastError() after the launch.
 int resize_pad_launch(const void* pix, int n_win, int win_h, int win_w,
                       const void* meta, int n_slots, int target_h,
                       int target_w, int num_chans, int out_bf16,
-                      const void* affine, const void* bright,
+                      float divisor, const void* affine, const void* bright,
                       const void* mean, const void* stdev, void* out,
                       void* stream) {
   if (n_slots == 0) return static_cast<int>(cudaSuccess);
@@ -226,11 +229,11 @@ int resize_pad_launch(const void* pix, int n_win, int win_h, int win_w,
   if (out_bf16) {
     resize_pad_kernel<__nv_bfloat16><<<grid, kThreads, smem, s>>>(
         p, n_win, win_h, win_w, m, n_slots, target_h, target_w, num_chans,
-        aff, br, mu, sd, static_cast<__nv_bfloat16*>(out));
+        divisor, aff, br, mu, sd, static_cast<__nv_bfloat16*>(out));
   } else {
     resize_pad_kernel<float><<<grid, kThreads, smem, s>>>(
         p, n_win, win_h, win_w, m, n_slots, target_h, target_w, num_chans,
-        aff, br, mu, sd, static_cast<float*>(out));
+        divisor, aff, br, mu, sd, static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

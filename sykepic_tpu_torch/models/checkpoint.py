@@ -9,7 +9,7 @@ A model directory (the reference's shape, ``train/train.py:116-119``)::
         best_state.pth      # or: a reference torch checkpoint
 
 Both formats load into one torch ``state_dict`` in torchvision naming
-(:mod:`sykepic_tpu_torch.models.resnet`):
+(every family of :mod:`sykepic_tpu_torch.models.registry`):
 
 - ``best_state.msgpack`` is read by :func:`msgpack_restore`, a small decoder
   of flax's format written here (the ``msgpack`` package is not a
@@ -28,6 +28,7 @@ trains. :func:`merge_variables` and :func:`load_pretrained` resolve the
 
 from __future__ import annotations
 
+import functools
 import re
 import struct
 from pathlib import Path
@@ -41,20 +42,6 @@ log = logger.get_logger("checkpoint")
 
 BEST_STATE = "best_state.msgpack"
 TORCH_STATE = "best_state.pth"
-
-# base.N -> torchvision child name, for reference TorchVisionNet state dicts
-# (base = Sequential(children[:-1]) of a torchvision resnet)
-_BASE_CHILDREN = {
-    "0": "conv1",
-    "1": "bn1",
-    "4": "layer1",
-    "5": "layer2",
-    "6": "layer3",
-    "7": "layer4",
-}
-
-_BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
-              "var": "running_var"}
 
 
 def read_class_names(model_dir) -> list[str]:
@@ -319,6 +306,199 @@ def load_variables(path) -> dict:
 # ---------------------------------------------------------------------------
 # key mapping
 # ---------------------------------------------------------------------------
+#
+# Every family's torch modules keep torchvision's names, and one map per
+# family turns a torch module prefix into its module path in the JAX
+# package's Flax tree (the port's copy of the key rules of
+# ``sykepic_tpu/models/convert_torch.py``). :func:`flax_paths` adds the
+# leaf rule that all families share; :func:`to_flax_variables` and
+# :func:`from_flax_variables` both read it, so the two directions cannot
+# drift apart.
+
+# family -> the network-name prefixes of the registry that belong to it
+FAMILIES = {
+    "resnet": ("resnet", "resnext", "wide_resnet"),
+    "efficientnet": ("efficientnet",),
+    "mobilenet": ("mobilenet_v3",),
+    "features": ("vgg", "alexnet"),
+    "convnext": ("convnext",),
+    "regnet": ("regnet",),
+}
+
+# reference TorchVisionNet ``base.N`` -> torchvision child, per family
+# (``base = Sequential(children[:-1])``; relu / pools hold no parameters)
+_BASE_CHILDREN = {
+    "resnet": {"0": "conv1", "1": "bn1", "4": "layer1", "5": "layer2",
+               "6": "layer3", "7": "layer4"},
+    "regnet": {"0": "stem", "1": "trunk_output"},
+    "features": {"0": "features"},  # and every family but those two
+}
+
+# a Flax module that normalises: its "weight" is a "scale"
+_NORM = re.compile(r"(^|_)(bn\d*|ln|norm)$")
+
+
+def family(network: str) -> str:
+    """The key-map family of a registry name."""
+    for fam, prefixes in FAMILIES.items():
+        if network.startswith(prefixes):
+            return fam
+    raise ValueError(f"no key map for network '{network}'")
+
+
+def _torch_family(keys) -> str:
+    """The family of a torch state dict, from its keys."""
+    keys = list(keys)
+    if "conv1.weight" in keys:
+        return "resnet"
+    for fam, pattern in (("regnet", r"trunk_output\."),
+                         ("convnext", r".*layer_scale$"),
+                         ("efficientnet", r"features\.\d+\.\d+\.block\."),
+                         ("mobilenet", r"features\.\d+\.block\."),
+                         ("features", r"features\.\d+\.weight$")):
+        if any(re.match(pattern, k) for k in keys):
+            return fam
+    raise KeyError(f"state dict of no known family; keys {keys[:3]}")
+
+
+def _resnet_modules(prefixes) -> dict:
+    out = {}
+    for p in prefixes:
+        parts = p.split(".")
+        if p in ("conv1", "bn1"):
+            out[p] = (p,)
+        elif len(parts) == 3 and re.fullmatch(r"layer\d+", parts[0]):
+            out[p] = (f"{parts[0]}_{parts[1]}", parts[2])
+        elif len(parts) == 4 and parts[2] == "downsample":
+            out[p] = (f"{parts[0]}_{parts[1]}",
+                      ("downsample_conv", "downsample_bn")[int(parts[3])])
+        else:
+            raise KeyError(p)
+    return out
+
+
+def _block_modules(prefixes, block_name, fused_without_se: bool) -> dict:
+    """EfficientNet and MobileNetV3: ``features.0`` the stem, another
+    ``features.N`` without ``.block`` the head conv, and blocks whose
+    ``block.{i}`` units play the roles [expand] dw [se] project (MBConv) or
+    fused [project] (EfficientNetV2's FusedMBConv: no squeeze-excitation).
+    The roles come from the units present, as the JAX converters find
+    them. ``block_name`` maps a block prefix to its Flax module."""
+    units: dict = {}
+    for p in prefixes:
+        if ".block." in p:
+            blk, rest = p.split(".block.")
+            unit, sub = rest.split(".")
+            units.setdefault(blk, {}).setdefault(int(unit), set()).add(sub)
+    roles = {}
+    for blk, by_unit in units.items():
+        se = [i for i, subs in by_unit.items() if "fc1" in subs]
+        convs = sorted(i for i in by_unit if i not in se)
+        if se or not fused_without_se:
+            names = (["expand", "dw", "project"] if len(convs) == 3
+                     else ["dw", "project"])
+        else:
+            names = ["fused", "project"]
+        roles[blk] = {**dict(zip(convs, names)), **{i: "se" for i in se}}
+    out = {}
+    for p in prefixes:
+        if ".block." in p:
+            blk, rest = p.split(".block.")
+            unit, sub = rest.split(".")
+            role = roles[blk][int(unit)]
+            out[p] = ((block_name(blk), "se", sub) if role == "se" else
+                      (block_name(blk),
+                       f"{role}_{'conv' if sub == '0' else 'bn'}"))
+        else:
+            m = re.fullmatch(r"features\.(\d+)\.([01])", p)
+            if m is None:
+                raise KeyError(p)
+            out[p] = (("stem" if m[1] == "0" else "head")
+                      + ("_conv", "_bn")[int(m[2])],)
+    return out
+
+
+def _efficientnet_modules(prefixes) -> dict:
+    def name(blk):  # features.G.R
+        _, g, r = blk.split(".")
+        return f"layer{g}_{r}"
+    return _block_modules(prefixes, name, fused_without_se=True)
+
+
+def _mobilenet_modules(prefixes) -> dict:
+    def name(blk):  # features.I
+        return f"layer{blk.split('.')[1]}_0"
+    return _block_modules(prefixes, name, fused_without_se=False)
+
+
+def _features_modules(prefixes) -> dict:
+    """VGG and AlexNet: a ``features`` Sequential of Conv [BatchNorm] ReLU
+    with max pools between the stages. A BatchNorm sits right after its
+    conv; a conv further from the previous one than conv [bn] relu follows
+    a pool and opens the next stage: ``layer{stage}_conv{j}`` /
+    ``layer{stage}_bn{j}`` (``sykepic_tpu/models/vgg.py::
+    feature_index_map``, ``alexnet.py:36-47``)."""
+    idx = sorted(int(p.split(".")[1]) for p in prefixes)
+    bn = any(b - a == 1 for a, b in zip(idx, idx[1:]))
+    step = 3 if bn else 2
+    out, stage, j, prev = {}, 1, -1, None
+    for i in idx:
+        if prev is not None and i == prev + 1:
+            out[f"features.{i}"] = (f"layer{stage}_bn{j}",)
+            continue
+        if prev is not None and i - prev > step:
+            stage, j = stage + 1, -1
+        j += 1
+        out[f"features.{i}"] = (f"layer{stage}_conv{j}",)
+        prev = i
+    if set(out) != set(prefixes):
+        raise KeyError(sorted(set(prefixes) - set(out)))
+    return out
+
+
+_CNBLOCK_UNITS = {"0": "dwconv", "2": "norm", "3": "mlp1", "5": "mlp2"}
+
+
+def _convnext_modules(prefixes) -> dict:
+    """``features`` = [stem, stage 1, down 2, stage 2, down 3, stage 3,
+    down 4, stage 4]; a downsample is [LayerNorm, conv]."""
+    out = {}
+    for p in prefixes:
+        parts = p.split(".")
+        fi = int(parts[1])
+        if fi == 0:
+            out[p] = (("stem_conv", "stem_ln")[int(parts[2])],)
+        elif fi % 2 == 0:
+            out[p] = (f"layer{fi // 2 + 1}_down_"
+                      + ("norm", "conv")[int(parts[2])],)
+        else:
+            mod = f"layer{(fi + 1) // 2}_{parts[2]}"
+            out[p] = ((mod,) if len(parts) == 3
+                      else (mod, _CNBLOCK_UNITS[parts[4]]))
+    return out
+
+
+def _regnet_modules(prefixes) -> dict:
+    out = {}
+    for p in prefixes:
+        if p in ("stem.0", "stem.1"):
+            out[p] = (("stem_conv", "stem_bn")[int(p[-1])],)
+            continue
+        m = re.fullmatch(r"trunk_output\.block(\d+)\.block\1-(\d+)\."
+                         r"(proj|f\.[abc]|f\.se)\.(\w+)", p)
+        if m is None:
+            raise KeyError(p)
+        unit = m[3].split(".")[-1]
+        mod = f"layer{m[1]}_{m[2]}"
+        out[p] = ((mod, "se", m[4]) if unit == "se" else
+                  (mod, f"{unit}_{'conv' if m[4] == '0' else 'bn'}"))
+    return out
+
+
+_MODULES = {"resnet": _resnet_modules, "efficientnet": _efficientnet_modules,
+            "mobilenet": _mobilenet_modules, "features": _features_modules,
+            "convnext": _convnext_modules, "regnet": _regnet_modules}
+
 
 def head_linear_indices(n_linears: int, dropout=()) -> list[int]:
     """torch Sequential index of each head Linear after the reference's
@@ -330,14 +510,74 @@ def head_linear_indices(n_linears: int, dropout=()) -> list[int]:
     return [pos for pos, (kind, _) in enumerate(layers) if kind == "L"]
 
 
-def normalize_state_dict(state_dict: dict) -> dict:
-    """Rewrite reference ``base.N.*`` keys into torchvision naming
-    (``conv1.*`` / ``layerX.Y.*``); ``head.K.*`` is kept as it is."""
+def head_ranks(keys) -> dict:
+    """Head Sequential index -> Linear rank, from ``head.K.weight`` keys."""
+    idx = sorted({int(k.split(".")[1]) for k in keys
+                  if k.startswith("head.") and k.endswith(".weight")})
+    return {k: r for r, k in enumerate(idx)}
+
+
+def _leaf_path(module: tuple, leaf: str) -> tuple:
+    if leaf in ("running_mean", "running_var"):
+        return ("batch_stats", *module, leaf.split("_")[1])
+    if leaf == "weight":
+        return ("params", *module,
+                "scale" if _NORM.search(module[-1]) else "kernel")
+    if leaf in ("bias", "layer_scale"):
+        return ("params", *module, leaf)
+    raise KeyError(leaf)
+
+
+def flax_paths(keys, network: str | None = None) -> dict:
+    """``(collection, module path..., leaf)`` in the JAX package's variable
+    tree for each torch ``state_dict`` key (``num_batches_tracked``, which
+    has no counterpart, is left out). The family comes from ``network``,
+    else from the keys. Leaves: a convolution's or Linear's ``weight`` is
+    its ``kernel``, a norm's ``weight`` its ``scale``, ``running_mean`` /
+    ``running_var`` are ``batch_stats`` ``mean`` / ``var``; head Linear
+    ``head.K`` is ``head/fc{rank}``. Raises ``KeyError`` for a key outside
+    the family's layout."""
+    keys = [k for k in keys if not k.endswith("num_batches_tracked")]
+    fam = family(network) if network else _torch_family(keys)
+    split = {k: k.rsplit(".", 1) for k in keys}
+    body = sorted({p for p, _ in split.values() if not p.startswith("head.")})
+    modules = _MODULES[fam](body)
+    ranks = head_ranks(keys)
+    out = {}
+    for key, (prefix, leaf) in split.items():
+        if prefix.startswith("head."):
+            parts = prefix.split(".")
+            if len(parts) != 2 or leaf not in ("weight", "bias"):
+                raise KeyError(key)
+            module = ("head", f"fc{ranks[int(parts[1])]}")
+        else:
+            module = modules[prefix]
+        out[key] = _leaf_path(module, leaf)
+    return out
+
+
+def normalize_state_dict(state_dict: dict, network: str | None = None) -> dict:
+    """Rewrite reference ``base.N.*`` keys into torchvision naming: for
+    ResNets ``base.0`` is ``conv1`` and ``base.4..7`` are ``layer1..4``;
+    for RegNets ``base.0``/``base.1`` are ``stem``/``trunk_output``; for
+    the other families ``base.0`` is ``features``
+    (``sykepic_tpu/models/convert_torch.py:59,157,767``). ``head.K.*`` is
+    kept as it is. The family comes from ``network``, else from the
+    keys."""
+    if network:
+        fam = family(network)
+    elif "base.0.weight" in state_dict:  # a ResNet's conv1
+        fam = "resnet"
+    elif any(re.match(r"base\.1\.block\d+\.", k) for k in state_dict):
+        fam = "regnet"
+    else:
+        fam = "features"
+    children = _BASE_CHILDREN.get(fam, _BASE_CHILDREN["features"])
     out = {}
     for key, value in state_dict.items():
         m = re.match(r"^base\.(\d+)\.(.*)$", key)
         if m:
-            child = _BASE_CHILDREN.get(m.group(1))
+            child = children.get(m.group(1))
             if child is None:  # relu / maxpool / avgpool have no params
                 continue
             key = f"{child}.{m.group(2)}"
@@ -349,54 +589,97 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32))  # a writable copy
 
 
-def _conv(kernel) -> torch.Tensor:
-    """flax (kH, kW, I, O) -> torch (O, I, kH, kW)."""
-    return _tensor(np.asarray(kernel).transpose(3, 2, 0, 1))
+@functools.lru_cache(maxsize=None)
+def _backbone_shapes(network: str) -> dict:
+    """Key -> shape of ``network``'s state dict without the head, from a
+    model built on the meta device (no memory, no initialisation)."""
+    from .registry import build_model
+
+    with torch.device("meta"):
+        model = build_model(network, 1, head=())
+    return {k: tuple(v.shape) for k, v in model.state_dict().items()
+            if not k.startswith("head.")}
 
 
-def _put_bn(sd: dict, prefix: str, params: dict, stats: dict) -> None:
-    for leaf, tree in (("scale", params), ("bias", params), ("mean", stats),
-                       ("var", stats)):
-        sd[f"{prefix}.{_BN_LEAVES[leaf]}"] = _tensor(tree[leaf])
-    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+def _flax_family(params: dict) -> str:
+    """The family of a Flax variable tree (the sniffers of
+    ``convert_torch.flax_to_torch``, ``:1157-1174``)."""
+    layers = [m for m in params if re.fullmatch(r"layer\d+_\d+", m)]
+    if "stem_ln" in params:
+        return "convnext"
+    if any("a_conv" in params[m] for m in layers):
+        return "regnet"
+    if "conv1" in params:
+        return "resnet"
+    if any(re.fullmatch(r"layer\d+_conv\d+", m) for m in params):
+        return "features"
+    if "stem_conv" in params:
+        # MobileNetV3 trees hold single-repeat blocks, some without SE
+        if (layers and all(m.endswith("_0") for m in layers)
+                and any("se" not in params[m] for m in layers)):
+            return "mobilenet"
+        return "efficientnet"
+    raise KeyError(f"variable tree of no known family: {sorted(params)[:8]}")
 
 
-def from_flax_variables(variables: dict, dropout=()) -> dict:
-    """The JAX package's ResNet variable tree (``{"params", "batch_stats"}``
-    of numpy leaves) -> a torch ``state_dict`` for
-    :class:`sykepic_tpu_torch.models.resnet.ResNet`.
+def _fits(variables: dict, network: str) -> bool:
+    """Whether ``network``'s backbone is exactly the tree's, leaf by leaf."""
+    shapes = _backbone_shapes(network)
+    paths = flax_paths(shapes, network)
+    want = {path: int(np.prod(shapes[k])) for k, path in paths.items()}
+    have = {p: int(np.size(v)) for p, v in _flatten(variables).items()
+            if p[1] != "head"}
+    return want == have
 
-    Conv kernels (kH, kW, I, O) -> (O, I, kH, kW); Dense (I, O) -> (O, I);
-    BatchNorm ``scale/bias/mean/var`` -> ``weight/bias/running_mean/
-    running_var``; ``layer{i}_{j}`` -> ``layer{i}.{j}``;
-    ``downsample_conv/bn`` -> ``downsample.0/1``; head ``fc{k}`` ->
-    ``head.K`` with the Dropout positions of ``dropout`` skipped.
-    """
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
-    if "conv1" not in params:
-        raise NotImplementedError(
-            "only ResNet-family checkpoints are ported; the other families "
-            "are ROADMAP slice 5")
-    sd: dict = {"conv1.weight": _conv(params["conv1"]["kernel"])}
-    _put_bn(sd, "bn1", params["bn1"], stats["bn1"])
-    for mod, tree in params.items():
-        m = re.match(r"^layer(\d+)_(\d+)$", mod)
-        if m is None:
+
+def sniff_network(variables: dict) -> str:
+    """The registry name whose backbone matches the variable tree's."""
+    from .registry import MODEL_REGISTRY
+
+    fam = _flax_family(variables["params"])
+    for name in MODEL_REGISTRY:
+        if family(name) == fam and _fits(variables, name):
+            return name
+    raise ValueError(f"no {fam} network of the registry matches the "
+                     "variable tree")
+
+
+def from_flax_variables(variables: dict, dropout=(),
+                        network: str | None = None) -> dict:
+    """The JAX package's variable tree (``{"params", "batch_stats"}`` of
+    numpy leaves) -> a torch ``state_dict`` for ``network`` (sniffed from
+    the tree when not given), by :func:`flax_paths` over the network's own
+    keys: conv kernels (kH, kW, I, O) -> (O, I, kH, kW); Dense (I, O) ->
+    (O, I); ConvNeXt's ``layer_scale`` (C,) -> (C, 1, 1); head ``fc{k}`` ->
+    ``head.K`` with the Dropout positions of ``dropout`` skipped. A leaf of
+    another shape, or a backbone leaf the network lacks, raises."""
+    network = network or sniff_network(variables)
+    shapes = _backbone_shapes(network)
+    paths = flax_paths(shapes, network)
+    sd: dict = {}
+    used = set()
+    for key, shape in shapes.items():
+        if key.endswith("num_batches_tracked"):
+            sd[key] = torch.tensor(0, dtype=torch.long)
             continue
-        prefix = f"layer{m.group(1)}.{m.group(2)}"
-        for sub, leaf in tree.items():
-            if sub.startswith("conv"):
-                sd[f"{prefix}.{sub}.weight"] = _conv(leaf["kernel"])
-            elif sub.startswith("bn"):
-                _put_bn(sd, f"{prefix}.{sub}", leaf, stats[mod][sub])
-            elif sub == "downsample_conv":
-                sd[f"{prefix}.downsample.0.weight"] = _conv(leaf["kernel"])
-            elif sub == "downsample_bn":
-                _put_bn(sd, f"{prefix}.downsample.1", leaf, stats[mod][sub])
-            else:
-                raise KeyError(f"Unhandled module {mod}.{sub}")
-    head = params.get("head", {})
+        path = paths[key]
+        node = variables
+        for name in path:
+            node = node[name]
+        a = np.asarray(node, np.float32)
+        if path[-1] == "kernel":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+        if a.shape != shape and not (path[-1] == "layer_scale"
+                                     and a.size == np.prod(shape)):
+            raise ValueError(f"{'/'.join(path)}: shape {a.shape} for "
+                             f"{network}'s {key} {shape}")
+        sd[key] = _tensor(a.reshape(shape))
+        used.add(path)
+    extra = [p for p in _flatten(variables) if p[1] != "head" and p not in used]
+    if extra:
+        raise ValueError(f"{network} has no {'/'.join(extra[0])} "
+                         f"({len(extra)} such leaves)")
+    head = variables["params"].get("head", {})
     for k, idx in enumerate(head_linear_indices(len(head), dropout)):
         fc = head[f"fc{k}"]
         sd[f"head.{idx}.weight"] = _tensor(np.asarray(fc["kernel"]).T)
@@ -404,68 +687,20 @@ def from_flax_variables(variables: dict, dropout=()) -> dict:
     return sd
 
 
-def flax_path(key: str, head_rank: dict) -> tuple:
-    """``(collection, module path..., leaf)`` of torch ``state_dict`` key
-    ``key`` in the JAX package's variable tree: the inverse renaming of
-    :func:`from_flax_variables`. ``head_rank`` maps a head Sequential index
-    to its Linear's rank ``k`` (``fc{k}``). Raises ``KeyError`` for a key
-    outside the ResNet layout."""
-    parts = key.split(".")
-    leaf = parts[-1]
-    if parts[0] == "head":
-        if len(parts) != 3 or leaf not in ("weight", "bias"):
-            raise KeyError(key)
-        fc = f"fc{head_rank[int(parts[1])]}"
-        return ("params", "head", fc, "kernel" if leaf == "weight" else
-                "bias")
-    if parts[0] in ("conv1", "bn1"):
-        mod = [parts[0]]
-        sub = parts[0]
-    elif re.match(r"^layer\d+$", parts[0]) and len(parts) >= 4:
-        block = f"{parts[0]}_{parts[1]}"
-        if parts[2] == "downsample":
-            sub = {"0": "downsample_conv", "1": "downsample_bn"}[parts[3]]
-        else:
-            sub = parts[2]
-        mod = [block, sub]
-    else:
-        raise KeyError(key)
-    if sub.startswith("conv") or sub == "downsample_conv":
-        if leaf != "weight":
-            raise KeyError(key)
-        return ("params", *mod, "kernel")
-    if leaf in ("running_mean", "running_var"):
-        return ("batch_stats", *mod, "mean" if leaf == "running_mean" else
-                "var")
-    if leaf in ("weight", "bias"):
-        return ("params", *mod, "scale" if leaf == "weight" else "bias")
-    raise KeyError(key)
-
-
-def head_ranks(keys) -> dict:
-    """Head Sequential index -> Linear rank, from ``head.K.weight`` keys."""
-    idx = sorted({int(k.split(".")[1]) for k in keys
-                  if k.startswith("head.") and k.endswith(".weight")})
-    return {k: r for r, k in enumerate(idx)}
-
-
-def to_flax_variables(state_dict: dict) -> dict:
-    """A torch ``state_dict`` of :class:`~sykepic_tpu_torch.models.resnet.
-    ResNet` -> the JAX package's ``{"params", "batch_stats"}`` tree of
-    float32 numpy leaves (the inverse of :func:`from_flax_variables`):
-    conv (O, I, kH, kW) -> (kH, kW, I, O), Linear (O, I) -> (I, O),
-    BatchNorm ``weight/bias/running_mean/running_var`` ->
-    ``scale/bias/mean/var``. ``num_batches_tracked`` has no counterpart and
-    is dropped."""
-    ranks = head_ranks(state_dict)
+def to_flax_variables(state_dict: dict, network: str | None = None) -> dict:
+    """A torch ``state_dict`` -> the JAX package's ``{"params",
+    "batch_stats"}`` tree of float32 numpy leaves (the inverse of
+    :func:`from_flax_variables`, by the same :func:`flax_paths`): conv
+    (O, I, kH, kW) -> (kH, kW, I, O), Linear (O, I) -> (I, O),
+    ``layer_scale`` (C, 1, 1) -> (C,). A family without BatchNorm keeps an
+    empty ``batch_stats``, as the JAX trainer saves it."""
     tree: dict = {"params": {}, "batch_stats": {}}
-    for key, value in state_dict.items():
-        if key.endswith("num_batches_tracked"):
-            continue
-        path = flax_path(key, ranks)
-        a = value.detach().to("cpu", torch.float32).numpy()
+    for key, path in flax_paths(state_dict, network).items():
+        a = state_dict[key].detach().to("cpu", torch.float32).numpy()
         if path[-1] == "kernel":
             a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        elif path[-1] == "layer_scale":
+            a = a.reshape(-1)
         node = tree
         for name in path[:-1]:
             node = node.setdefault(name, {})
@@ -516,8 +751,8 @@ def load_pretrained(variables, weights_spec, network_name: str,
 
     - empty/None: random init (the explicit way to ask for it);
     - a path to ``.msgpack``/``.pth``: load and merge matching leaves (a
-      torchvision-layout ``.pth`` loses its ``fc`` classifier, which the
-      head replaces);
+      torchvision-layout ``.pth`` loses its ``fc`` or ``classifier``, which
+      the head replaces);
     - a torchvision weights name ("DEFAULT", "IMAGENET1K_V1", ...): the
       port does not depend on torchvision, so this raises
       unless ``[model] allow_random_init`` is set, which trains from random
@@ -533,9 +768,11 @@ def load_pretrained(variables, weights_spec, network_name: str,
         if path.suffix == ".msgpack":
             return merge_variables(variables, load_variables(path))
         sd = normalize_state_dict(torch.load(path, map_location="cpu",
-                                             weights_only=True))
-        sd = {k: v for k, v in sd.items() if not k.startswith("fc.")}
-        return merge_variables(variables, to_flax_variables(sd))
+                                             weights_only=True), network_name)
+        sd = {k: v for k, v in sd.items()
+              if not k.startswith(("fc.", "classifier."))}
+        return merge_variables(variables,
+                               to_flax_variables(sd, network_name))
     if allow_random_init:
         log.warning(
             f"Pretrained weights '{weights_spec}' ({network_name}) need "
@@ -549,19 +786,23 @@ def load_pretrained(variables, weights_spec, network_name: str,
         "scratch.")
 
 
-def load_model_state(model_dir, dropout=(), device="cpu") -> dict:
+def load_model_state(model_dir, dropout=(), device="cpu",
+                     network: str | None = None) -> dict:
     """``best_state`` of a model dir as a torch ``state_dict`` on
     ``device``: the msgpack checkpoint first, the reference ``.pth`` as the
     fallback. ``dropout`` is the dir's ``[model] dropout`` spec, which
-    places the msgpack head's Linears at their ``head.K`` indices."""
+    places the msgpack head's Linears at their ``head.K`` indices;
+    ``network`` is its ``[model] network``, which picks the key map (the
+    checkpoint is sniffed without it)."""
     model_dir = Path(model_dir)
     native = model_dir / BEST_STATE
     if native.is_file():
         sd = from_flax_variables(msgpack_restore(native.read_bytes()),
-                                 dropout)
+                                 dropout, network)
     elif (model_dir / TORCH_STATE).is_file():
         sd = normalize_state_dict(torch.load(
-            model_dir / TORCH_STATE, map_location="cpu", weights_only=True))
+            model_dir / TORCH_STATE, map_location="cpu", weights_only=True),
+            network)
     else:
         raise FileNotFoundError(
             f"No {BEST_STATE} or {TORCH_STATE} in {model_dir}")

@@ -11,9 +11,11 @@ with ``strict=True`` once its ``base.N`` prefixes are renamed
 - BatchNorm eps 1e-5; inference uses running statistics (``.eval()``).
   In training the running variance takes the BIASED batch variance, as
   Flax's ``BatchNorm`` does (``nn.BatchNorm2d`` takes the unbiased one):
-  :class:`BatchNorm2d`.
-- Dropout in training draws its masks from the ``generator`` its owner sets
-  (:class:`Dropout`), so a seeded training run repeats.
+  :class:`BatchNorm2d`, which the other families share with their own Flax
+  momentum and eps.
+- Dropout and row-mode stochastic depth in training draw their masks from
+  the ``generator`` their owner sets (:class:`Dropout`,
+  :class:`StochasticDepth`), so a seeded training run repeats.
 - Max-pool 3x3 / 2 with padding 1; global average pool.
 - The head is literally stacked ``Linear`` layers with no activations in
   between, with Dropout layers spliced in by index using Python
@@ -37,14 +39,21 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1):
 
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose training step updates the running
-    statistics as Flax's ``BatchNorm`` (momentum 0.9) does:
-    ``ra_mean = 0.9 ra_mean + 0.1 mean`` and ``ra_var = 0.9 ra_var + 0.1
-    var`` with the biased batch variance. ``nn.BatchNorm2d`` would fold in
-    the unbiased one, ``n / (n - 1)`` larger (72/71 at layer4 for a batch of
-    2 at 6x6). The batch statistics come out of the same ``F.batch_norm``
-    call that normalises (into zeroed buffers at momentum 1, which hold the
-    batch mean and the unbiased variance), so no extra pass over the
-    activations is made. Evaluation is ``nn.BatchNorm2d``'s."""
+    statistics as Flax's ``BatchNorm`` does, with Flax's ``momentum`` (0.9
+    unless a family says otherwise; MobileNetV3 takes 0.99):
+    ``ra_mean = m ra_mean + (1 - m) mean`` and ``ra_var = m ra_var +
+    (1 - m) var`` with the biased batch variance. ``nn.BatchNorm2d`` would
+    fold in the unbiased one, ``n / (n - 1)`` larger (72/71 at layer4 for a
+    batch of 2 at 6x6). The batch statistics come out of the same
+    ``F.batch_norm`` call that normalises (into zeroed buffers at momentum
+    1, which hold the batch mean and the unbiased variance), so no extra
+    pass over the activations is made. Evaluation is ``nn.BatchNorm2d``'s,
+    with ``eps``."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9,
+                 eps: float = 1e-5):
+        super().__init__(num_features, eps=eps, momentum=1.0 - momentum)
+        self.flax_momentum = momentum
 
     def forward(self, x):
         if not self.training:
@@ -54,10 +63,11 @@ class BatchNorm2d(nn.BatchNorm2d):
         y = F.batch_norm(x, mean, var_unbiased, self.weight, self.bias,
                          training=True, momentum=1.0, eps=self.eps)
         n = x.numel() // x.shape[1]
+        m = self.flax_momentum
         with torch.no_grad():
-            self.running_mean.mul_(0.9).add_(0.1 * mean)
-            self.running_var.mul_(0.9).add_(
-                0.1 * (var_unbiased * ((n - 1) / n)))
+            self.running_mean.mul_(m).add_((1.0 - m) * mean)
+            self.running_var.mul_(m).add_(
+                (1.0 - m) * (var_unbiased * ((n - 1) / n)))
         return y
 
 
@@ -77,8 +87,27 @@ class Dropout(nn.Dropout):
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 
-def _bn(c: int):
-    return BatchNorm2d(c, eps=1e-5, momentum=0.1)
+class StochasticDepth(nn.Module):
+    """Row-mode stochastic depth (torchvision ``StochasticDepth(p, "row")``
+    and the JAX package's ``CNBlock``): in training each sample's residual
+    branch survives with probability ``1 - p`` and survivors are scaled by
+    ``1 / (1 - p)``; the draw comes from ``self.generator`` (set by the
+    trainer, the global generator without one). The identity in
+    evaluation and at ``p = 0``."""
+
+    generator: torch.Generator | None = None
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
+                       generator=self.generator, device=x.device)
+        return x * ((u < keep).to(x.dtype) / keep)
 
 
 class BasicBlock(nn.Module):
@@ -89,14 +118,14 @@ class BasicBlock(nn.Module):
     def __init__(self, cin: int, filters: int, stride: int = 1):
         super().__init__()
         self.conv1 = _conv(cin, filters, 3, stride)
-        self.bn1 = _bn(filters)
+        self.bn1 = BatchNorm2d(filters)
         self.conv2 = _conv(filters, filters, 3)
-        self.bn2 = _bn(filters)
+        self.bn2 = BatchNorm2d(filters)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if stride != 1 or cin != filters:
             self.downsample = nn.Sequential(_conv(cin, filters, 1, stride),
-                                            _bn(filters))
+                                            BatchNorm2d(filters))
 
     def forward(self, x):
         residual = x if self.downsample is None else self.downsample(x)
@@ -121,16 +150,16 @@ class Bottleneck(nn.Module):
         width = int(filters * (base_width / 64.0)) * groups
         cout = filters * self.expansion
         self.conv1 = _conv(cin, width, 1)
-        self.bn1 = _bn(width)
+        self.bn1 = BatchNorm2d(width)
         self.conv2 = _conv(width, width, 3, stride, groups)
-        self.bn2 = _bn(width)
+        self.bn2 = BatchNorm2d(width)
         self.conv3 = _conv(width, cout, 1)
-        self.bn3 = _bn(cout)
+        self.bn3 = BatchNorm2d(cout)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(_conv(cin, cout, 1, stride),
-                                            _bn(cout))
+                                            BatchNorm2d(cout))
 
     def forward(self, x):
         residual = x if self.downsample is None else self.downsample(x)
@@ -165,7 +194,20 @@ class Head(nn.Sequential):
         return [(i, m.p) for i, m in enumerate(self) if isinstance(m, Dropout)]
 
 
-class ResNet(nn.Module):
+class Backbone(nn.Module):
+    """The ``base`` + ``head`` contract every family keeps (reference
+    ``TorchVisionNet``): :meth:`embed` maps an NCHW batch (any memory
+    format) to the pooled, flattened features the :class:`Head` reads."""
+
+    def embed(self, x):
+        raise NotImplementedError
+
+    def forward(self, x):
+        """NCHW (any memory format) -> logits."""
+        return self.head(self.embed(x))
+
+
+class ResNet(Backbone):
     """ResNet backbone + MLP head: conv7x7/2 -> bn -> relu -> maxpool3x3/2
     -> 4 stages -> global average pool -> head."""
 
@@ -176,7 +218,7 @@ class ResNet(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(in_chans, num_filters, 7, stride=2, padding=3,
                                bias=False)
-        self.bn1 = _bn(num_filters)
+        self.bn1 = BatchNorm2d(num_filters)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         cin = num_filters
@@ -192,15 +234,11 @@ class ResNet(nn.Module):
         self.num_stages = len(stage_sizes)
         self.head = Head(cin, head, num_classes, dropout)
 
-    def features(self, x):
+    def embed(self, x):
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         for i in range(self.num_stages):
             x = getattr(self, f"layer{i + 1}")(x)
         return x.mean(dim=(2, 3))  # global average pool
-
-    def forward(self, x):
-        """NCHW (any memory format) -> logits."""
-        return self.head(self.features(x))
 
 
 def resnet18(**kw) -> ResNet:

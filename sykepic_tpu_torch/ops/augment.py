@@ -16,13 +16,20 @@ per-image flips, translations, zoom factors and brightness from an explicit
 package's float32 steps in its order, so the tests can hand both packages
 the same draws.
 
-The rotation warp (``augment_batch``/``_warp_bilinear``) is not ported yet
-(ROADMAP Queue 1); a config that asks for ``rotate`` raises.
+Rotation is not separable. With ``rotate`` on, the JAX train step resizes
+first (K1's eval form, on the 0-255 scale) and then warps the batch:
+:func:`augment_batch` composes the inverse of flip -> translate -> zoom ->
+rotate per image (:func:`compose_inverse`), samples bilinearly with the
+image's constant border (:func:`warp_bilinear`), and applies brightness,
+clip and floor. Here that is plain tensor ops, as it was an XLA gather (no
+Pallas kernel) in the JAX package, in its float32 steps and order.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import math
 
 import numpy as np
 import torch
@@ -37,6 +44,8 @@ class Draws(NamedTuple):
     ty: torch.Tensor  # float32 integers in [-limit_y, limit_y]
     f: torch.Tensor  # float32 zoom factor, rounded to 2 decimals
     bright: torch.Tensor  # float32 brightness factor
+    # float32 integer degrees in [-max_rotation, max_rotation]; None: 0
+    angle: torch.Tensor | None = None
 
 
 def translate_limits(heights, widths, new_h, new_w, target_h: int, target_w: int):
@@ -71,12 +80,13 @@ def _randint_inclusive(gen, limit, device):
 def draw_params(gen: torch.Generator, batch: int, limit_x, limit_y, *,
                 flip: bool = False, translate: bool = False,
                 zoom: bool = False, brightness: bool = False,
-                zoom_range=(1.0, 1.0), brightness_range=(1.0, 1.0),
+                rotate: bool = False, zoom_range=(1.0, 1.0),
+                brightness_range=(1.0, 1.0), max_rotation: int = 0,
                 device=None) -> Draws:
     """Draw per-image parameters from ``gen`` (the JAX package's
-    ``_affine_params`` without rotation). ``limit_x``/``limit_y`` are
-    ``(B,)`` integer tensors from :func:`translate_limits`. Disabled
-    augmentations draw nothing and give the identity."""
+    ``_affine_params``). ``limit_x``/``limit_y`` are ``(B,)`` integer
+    tensors from :func:`translate_limits`. Disabled augmentations draw
+    nothing and give the identity."""
     device = gen.device if device is None else device
     one = torch.ones(batch, dtype=torch.float32, device=device)
     no = torch.zeros(batch, dtype=torch.bool, device=device)
@@ -95,10 +105,15 @@ def draw_params(gen: torch.Generator, batch: int, limit_x, limit_y, *,
         # the reference rounds to 2 decimals (image.py:127); half to even,
         # as jnp.round
         f = torch.round(f * 100.0) / torch.full_like(f, 100.0)
+    angle = zero
+    if rotate:
+        angle = _randint_inclusive(
+            gen, torch.full((batch,), int(max_rotation), dtype=torch.int32,
+                            device=device), device)
     if brightness:
         bright = _uniform(gen, batch, brightness_range[0],
                           brightness_range[1], device)
-    return Draws(flip_h, flip_v, tx, ty, f, bright)
+    return Draws(flip_h, flip_v, tx, ty, f, bright, angle)
 
 
 def separable_params(draws: Draws, target_h: int, target_w: int):
@@ -134,6 +149,80 @@ def apply_brightness(img, bright):
     """Multiplicative brightness + clip + uint8-cast truncation
     (reference ``image.py:174-176``) on a (B, H, W) float batch."""
     return torch.floor(torch.clamp(img * bright[:, None, None], 0.0, 255.0))
+
+
+def compose_inverse(draws: Draws, h: int, w: int):
+    """``(src_x, src_y)``, each ``(B, h, w)`` float32: the source point of
+    every output pixel under the inverse of the chain flipH -> flipV ->
+    translate -> zoom -> rotate (``sykepic_tpu/ops/augment.py:101-133``).
+    Rotation turns by ``-angle`` degrees about the integer centre
+    ``(w // 2, h // 2)`` (cv2's); zoom scales by ``1 / f`` about the
+    continuous centre ``((w - 1) / 2, (h - 1) / 2)``; the translation
+    subtracts; flips mirror last."""
+    f = draws.f.to(torch.float32)
+    dev = f.device
+    angle = (torch.zeros_like(f) if draws.angle is None
+             else draws.angle.to(torch.float32))
+    # centres are half-integers or integers: exact in float32
+    cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
+    rcx, rcy = float(w // 2), float(h // 2)
+    p_y = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+    p_x = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+    rad = -angle * torch.tensor(math.pi / 180.0, dtype=torch.float32,
+                                device=dev)
+    ca = torch.cos(rad)[:, None, None]
+    sa = torch.sin(rad)[:, None, None]
+    x = p_x - rcx
+    y = p_y - rcy
+    x, y = ca * x + sa * y, -sa * x + ca * y
+    x = x + rcx
+    y = y + rcy
+    fb = f[:, None, None]
+    x = (x - cx) / fb + cx
+    y = (y - cy) / fb + cy
+    x = x - draws.tx.to(torch.float32)[:, None, None]
+    y = y - draws.ty.to(torch.float32)[:, None, None]
+    x = torch.where(draws.flip_h[:, None, None], (w - 1) - x, x)
+    y = torch.where(draws.flip_v[:, None, None], (h - 1) - y, y)
+    return x, y
+
+
+def warp_bilinear(img, src_x, src_y, border):
+    """Bilinear sample of a ``(B, H, W)`` float batch at ``(src_x,
+    src_y)`` with the constant ``border`` ``(B,)`` outside the image (cv2
+    BORDER_CONSTANT; ``sykepic_tpu/ops/augment.py:136-155``)."""
+    b, h, w = img.shape
+    inside = (src_x >= 0) & (src_x <= w - 1) & (src_y >= 0) & (src_y <= h - 1)
+    fx = torch.clamp(src_x, 0.0, w - 1)
+    fy = torch.clamp(src_y, 0.0, h - 1)
+    x0 = torch.floor(fx)
+    y0 = torch.floor(fy)
+    wx = fx - x0
+    wy = fy - y0
+    x0 = x0.to(torch.int64)
+    y0 = y0.to(torch.int64)
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    flat = img.reshape(b, h * w)
+
+    def tap(yy, xx):
+        return flat.gather(1, (yy * w + xx).reshape(b, -1)).reshape(yy.shape)
+
+    p00, p01 = tap(y0, x0), tap(y0, x1)
+    p10, p11 = tap(y1, x0), tap(y1, x1)
+    top = p00 + (p01 - p00) * wx
+    bot = p10 + (p11 - p10) * wx
+    val = top + (bot - top) * wy
+    return torch.where(inside, val, border.to(torch.float32)[:, None, None])
+
+
+def augment_batch(img, draws: Draws, border):
+    """The JAX package's ``augment_batch`` on given draws: warp a
+    ``(B, H, W)`` float batch on the 0-255 scale by the whole affine chain,
+    then brightness, clip and floor; the same shape and scale back."""
+    src_x, src_y = compose_inverse(draws, img.shape[1], img.shape[2])
+    out = warp_bilinear(img, src_x, src_y, border)
+    return apply_brightness(out, draws.bright.to(torch.float32))
 
 
 def spec_kwargs(augmentations, zoom_range, brightness_range, max_rotation):

@@ -226,7 +226,7 @@ def resize_pad_batch(canvas, heights, widths, new_h, new_w, pad_top,
 
 def resize_pad_plain(pixels, meta, target_h: int, target_w: int,
                      num_chans: int, dtype=torch.float32, affine=None,
-                     bright=None, mean=None, std=None):
+                     bright=None, mean=None, std=None, raw: bool = False):
     """The plain version of the kernel's whole contract: uint8 ``pixels``
     ``(N, H, W)`` and the ``(10, R)`` slot metadata (:data:`META_ROWS`) ->
     ``(R, target_h, target_w, num_chans)`` NHWC in ``dtype``, divided by
@@ -239,17 +239,28 @@ def resize_pad_plain(pixels, meta, target_h: int, target_w: int,
     ``bright`` (float32 ``(R,)``) is ``apply_brightness``'s multiply, clip
     and floor; then ``/ 255``, the channel copy, and ``(x - mean) / std``
     per channel when ``mean``/``std`` (float32 ``(num_chans,)``) are
-    given."""
+    given. ``raw`` keeps the 0-255 scale (no division)."""
     win_idx, y0, x0, h, w, nh, nw, pt, pl, border = meta
     img = resize_pad_batch(pixels, h, w, nh, nw, pt, pl, border,
                            target_h, target_w, y_origin=y0, x_origin=x0,
                            win_idx=win_idx, affine=affine)
     if bright is not None:
         img = augment.apply_brightness(img, bright.to(img.device))
-    # a true division, as the JAX package and the kernel do: torch turns a
-    # division by a Python or 0-d scalar into a multiply by its reciprocal,
-    # which differs in the last ulp, so the divisor is a 1-element tensor
-    img = img / torch.full((1,), 255.0, device=img.device)
+    return to_channels(img, num_chans, dtype, mean, std, divide=not raw)
+
+
+def to_channels(img, num_chans: int, dtype=torch.float32, mean=None,
+                std=None, divide: bool = True):
+    """A ``(R, H, W)`` float32 batch on the 0-255 scale -> ``(R, H, W,
+    num_chans)`` in ``dtype``: ``/ 255`` (unless ``divide`` is off), the
+    channel copy, then ``(x - mean) / std`` per channel when given (the
+    tail of the JAX train step, ``sykepic_tpu/train/trainer.py:197-207``)."""
+    if divide:
+        # a true division, as the JAX package and the kernel do: torch
+        # turns a division by a Python or 0-d scalar into a multiply by its
+        # reciprocal, which differs in the last ulp, so the divisor is a
+        # 1-element tensor
+        img = img / torch.full((1,), 255.0, device=img.device)
     img = img[..., None].expand(-1, -1, -1, num_chans)
     if mean is not None:
         img = (img - mean.to(img.device)) / std.to(img.device)

@@ -44,7 +44,8 @@ def _kernel():
         fn.restype = ctypes.c_int
         i = ctypes.c_int
         p = ctypes.c_void_p
-        fn.argtypes = [p, i, i, i, p, i, i, i, i, i, p, p, p, p, p, p]
+        fn.argtypes = [p, i, i, i, p, i, i, i, i, i, ctypes.c_float, p, p,
+                       p, p, p, p]
         _fn = fn
     return _fn
 
@@ -64,11 +65,12 @@ def _f32_input(name, t, shape, device):
 def resize_pad(pixels: torch.Tensor, meta: torch.Tensor, target_h: int,
                target_w: int, num_chans: int = 3, dtype=torch.float32,
                affine=None, bright=None, mean=None, std=None,
-               out=None) -> torch.Tensor:
+               out=None, raw: bool = False) -> torch.Tensor:
     """uint8 ``pixels`` ``(N, H, W)`` + int32 slot metadata ``(10, R)``
     (rows :data:`~sykepic_tpu_torch.ops.preprocess.META_ROWS`) ->
     ``(R, target_h, target_w, num_chans)`` NHWC in ``dtype`` (float32 or
-    bfloat16), values in [0, 1] (before normalisation).
+    bfloat16), values in [0, 1] (before normalisation), or on the 0-255
+    scale with ``raw`` (the eval form the rotation route warps).
 
     Train form: ``affine`` float32 ``(4, R)`` rows ``(a_y, b_y, a_x, b_x)``
     make the sampling coordinate ``a * i + b``; ``bright`` float32 ``(R,)``
@@ -83,7 +85,7 @@ def resize_pad(pixels: torch.Tensor, meta: torch.Tensor, target_h: int,
     if pixels.device.type == "cpu" and meta.device.type == "cpu":
         res = resize_pad_plain(pixels, meta, target_h, target_w, num_chans,
                                dtype, affine=affine, bright=bright,
-                               mean=mean, std=std)
+                               mean=mean, std=std, raw=raw)
         if out is None:
             return res
         out.copy_(res)
@@ -135,7 +137,8 @@ def resize_pad(pixels: torch.Tensor, meta: torch.Tensor, target_h: int,
     with torch.cuda.device(dev):
         err = _kernel()(
             pixels.data_ptr(), n_win, win_h, win_w, meta.data_ptr(), n_slots,
-            target_h, target_w, num_chans, _OUT_DTYPES[dtype], ptr(affine),
+            target_h, target_w, num_chans, _OUT_DTYPES[dtype],
+            1.0 if raw else 255.0, ptr(affine),
             ptr(bright), ptr(mean), ptr(std), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -124,12 +124,12 @@ def main(args):
     model, weights_spec = config_mod.get_network(config, num_classes)
     registry.init_weights(model, seed=random_seed)
     variables = checkpoint.load_pretrained(
-        checkpoint.to_flax_variables(model.state_dict()), weights_spec,
-        model_network,
+        checkpoint.to_flax_variables(model.state_dict(), model_network),
+        weights_spec, model_network,
         allow_random_init=config.getboolean("model", "allow_random_init",
                                             fallback=False))
     model.load_state_dict(checkpoint.from_flax_variables(
-        variables, model.head.dropout_spec()))
+        variables, model.head.dropout_spec(), model_network))
 
     # [lr_warmup] / [lr_reduction]
     warmup = None

@@ -41,7 +41,7 @@ from torch.nn import functional as F
 
 from .. import device as device_mod
 from ..models import checkpoint
-from ..models.resnet import Dropout
+from ..models.resnet import Dropout, StochasticDepth
 from ..ops import augment as augment_ops
 from ..ops import preprocess, resize_pad
 
@@ -53,9 +53,12 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def label_params(params):
     """Group-id tree matching a Flax-named ``params`` tree (the JAX
     package's function, ``sykepic_tpu/train/trainer.py:59-92``): head + all
-    BatchNorm -> group 0, the LAST backbone stage (ResNet ``layer4*``;
-    EfficientNet's final layer-group + head_conv) -> group 1, rest ->
-    group 2. :func:`param_groups` carries it to the port's names."""
+    BatchNorm -> group 0, the LAST backbone stage (``layer4*`` of ResNet,
+    RegNet and ConvNeXt, ``layer5*`` of VGG, ``layer3*`` of AlexNet, the
+    last block + ``head_conv`` of EfficientNet and MobileNetV3) -> group
+    1, rest -> group 2. ConvNeXt's LayerNorms are not BatchNorm: they go
+    with their stage. :func:`param_groups` carries it to the port's
+    names."""
     flat = checkpoint._flatten(params)
     # highest layer-group index present = the "last sequential part"
     top = 0
@@ -91,14 +94,15 @@ def param_groups(model) -> dict:
     """LR group of every parameter of ``model`` by its torch name:
     :func:`label_params` on the model's Flax-named tree, carried across
     with the key map of :func:`~sykepic_tpu_torch.models.checkpoint.
-    from_flax_variables`."""
-    sd = model.state_dict()
-    labels = label_params(checkpoint.to_flax_variables(sd)["params"])
-    ranks = checkpoint.head_ranks(sd)
+    flax_paths`."""
+    paths = checkpoint.flax_paths(model.state_dict(),
+                                  getattr(model, "network", None))
+    labels = label_params(checkpoint._unflatten(
+        {p[1:]: None for p in paths.values() if p[0] == "params"}))
     out = {}
     for name, _ in model.named_parameters():
         node = labels
-        for k in checkpoint.flax_path(name, ranks)[1:]:
+        for k in paths[name][1:]:
             node = node[k]
         out[name] = node
     return out
@@ -181,10 +185,10 @@ def make_optimizer(name: str) -> Optimizer:
 class Trainer:
     """Owns the model, the optimizer state and the train/eval steps.
 
-    ``model`` is a :class:`~sykepic_tpu_torch.models.resnet.ResNet` holding
-    its weights; it moves to ``device`` (``cuda`` unless ``cpu`` is asked
-    for; ``cuda`` without a card raises) in channels_last. ``dtype`` is the
-    compute dtype ("float32" or "bfloat16").
+    ``model`` is a model of :mod:`sykepic_tpu_torch.models.registry`
+    holding its weights; it moves to ``device`` (``cuda`` unless ``cpu`` is
+    asked for; ``cuda`` without a card raises) in channels_last. ``dtype``
+    is the compute dtype ("float32" or "bfloat16").
     """
 
     def __init__(self, model, optimizer: str = "Adam", preprocess_spec=None,
@@ -195,11 +199,6 @@ class Trainer:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
         self.dtype = _DTYPES[dtype]
         self.augment_kwargs = dict(augment_kwargs or {})
-        if self.augment_kwargs.get("rotate"):
-            raise NotImplementedError(
-                "the rotation augmentation (augment_batch) is not ported "
-                "yet (ROADMAP Queue 1); drop 'rotate' from [image] "
-                "augmentations")
         if self.device.type == "cuda" and self.dtype == torch.float32:
             # cuDNN convolutions default to TF32 (about three digits)
             torch.backends.cudnn.allow_tf32 = False
@@ -208,7 +207,7 @@ class Trainer:
         self.spec = preprocess_spec
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         for m in self.model.modules():
-            if isinstance(m, Dropout):
+            if isinstance(m, (Dropout, StochasticDepth)):
                 m.generator = self.gen
         groups = param_groups(self.model)
         self.names = [n for n, _ in self.model.named_parameters()]
@@ -238,8 +237,12 @@ class Trainer:
         affines and brightness (when ``augment_kwargs`` is set; brightness
         alone off still floors, as the JAX step's ``apply_brightness`` with
         factors of 1 does) and the ImageNet normalisation (when the spec
-        asks). Eval never normalises (the reference normalises only its
-        train transform)."""
+        asks). With ``rotate`` on, the JAX step's other route: K1's eval
+        form on the 0-255 scale, then :func:`~sykepic_tpu_torch.ops.augment.
+        augment_batch` (the whole affine chain as one warp, brightness and
+        floor), ``/ 255``, the channel copy and the normalisation. Eval
+        never normalises (the reference normalises only its train
+        transform)."""
         spec = self.spec
         t_h, t_w, c = spec.target_h, spec.target_w, spec.num_chans
         total = sum(int(idx.numel()) for _, idx in parts)
@@ -247,11 +250,15 @@ class Trainer:
                         device=self.device)
         ys = []
         kw = self.augment_kwargs if train else {}
+        norm = train and self.mean is not None
+        mean = self.mean if norm else None
+        std = self.std if norm else None
         pos = 0
         for store, idx in parts:
             n = int(idx.numel())
             meta = store["meta"].index_select(1, idx)
-            affine = bright = None
+            out = x[pos:pos + n]
+            draws = None
             if kw:
                 lim = store["lim"].index_select(1, idx)
                 draws = augment_ops.draw_params(
@@ -260,16 +267,23 @@ class Trainer:
                     translate=kw.get("translate", False),
                     zoom=kw.get("zoom", False),
                     brightness=kw.get("brightness", False),
+                    rotate=kw.get("rotate", False),
                     zoom_range=kw.get("zoom_range", (1.0, 1.0)),
-                    brightness_range=kw.get("brightness_range", (1.0, 1.0)))
-                affine = augment_ops.affine_rows(draws, t_h, t_w)
-                bright = draws.bright.contiguous()
-            norm = train and self.mean is not None
-            resize_pad.resize_pad(
-                store["canvas"], meta, t_h, t_w, c, self.dtype,
-                affine=affine, bright=bright,
-                mean=self.mean if norm else None,
-                std=self.std if norm else None, out=x[pos:pos + n])
+                    brightness_range=kw.get("brightness_range", (1.0, 1.0)),
+                    max_rotation=kw.get("max_rotation", 0))
+            if kw.get("rotate"):
+                img = resize_pad.resize_pad(store["canvas"], meta, t_h, t_w,
+                                            1, torch.float32, raw=True)
+                img = augment_ops.augment_batch(img[..., 0], draws, meta[9])
+                out.copy_(preprocess.to_channels(img, c, self.dtype, mean,
+                                                 std))
+            else:
+                resize_pad.resize_pad(
+                    store["canvas"], meta, t_h, t_w, c, self.dtype,
+                    affine=(None if draws is None
+                            else augment_ops.affine_rows(draws, t_h, t_w)),
+                    bright=None if draws is None else draws.bright.contiguous(),
+                    mean=mean, std=std, out=out)
             ys.append(store["labels"].index_select(0, idx))
             pos += n
         return x, torch.cat(ys)
@@ -438,12 +452,14 @@ class Trainer:
     def variables(self) -> dict:
         """The model's ``{"params", "batch_stats"}`` in the JAX package's
         layout (numpy, on the host)."""
-        return checkpoint.to_flax_variables(self.model.state_dict())
+        return checkpoint.to_flax_variables(
+            self.model.state_dict(), getattr(self.model, "network", None))
 
     def set_variables(self, variables) -> None:
         """Load a ``{"params", "batch_stats"}`` tree into the model."""
         self.model.load_state_dict(checkpoint.from_flax_variables(
-            variables, self.model.head.dropout_spec()), strict=True)
+            variables, self.model.head.dropout_spec(),
+            getattr(self.model, "network", None)), strict=True)
 
     def optimizer_state(self) -> dict:
         """The optimizer state as plain CPU tensors and ints (for

@@ -3,7 +3,13 @@ against the JAX package's (``sykepic_tpu/ops/augment.py``): translate
 limits equal; ``separable_params`` given JAX's drawn values equals JAX's
 ``(a, b)`` bit for bit; the port's own draws (a ``torch.Generator``, whose
 streams differ from JAX's PRNG) stay in range, translate inclusive at
-+-limit and zoom rounded to 2 decimals; ``apply_brightness`` equal."""
++-limit and zoom rounded to 2 decimals; ``apply_brightness`` equal.
+
+The rotation route: the port's ``augment_batch`` given JAX's draws
+(``_affine_params`` with the same key) against JAX's ``augment_batch`` on
+the same 0-255 batch: at most 0.1% of pixels one level apart (float32
+``cos``/``sin`` and the blend may differ by an ulp before the floor), the
+rest within 1e-3; the inverse map itself within 1e-3 px."""
 
 import jax
 import jax.numpy as jnp
@@ -127,3 +133,73 @@ def test_apply_brightness_equal():
 def test_spec_kwargs_equal():
     args = (("flip", "zoom", "brightness"), (0.6, 1.4), (0.95, 1.1), 10)
     assert augment.spec_kwargs(*args) == jax_augment.spec_kwargs(*args)
+
+
+def _rotation_case(seed, b=24, h=48, w=40, **flags):
+    rng = np.random.default_rng(seed)
+    imgs = rng.uniform(0, 255, (b, h, w)).astype(np.float32)
+    # smooth content, so the blend weights matter
+    imgs = (imgs + np.roll(imgs, 1, 1) + np.roll(imgs, 1, 2)) / 3
+    border = rng.integers(0, 256, b).astype(np.uint8)
+    lim_x = rng.integers(0, 6, b).astype(np.int32)
+    lim_y = rng.integers(0, 6, b).astype(np.int32)
+    kw = dict(flip=True, translate=True, zoom=True, rotate=True,
+              brightness=True, zoom_range=(0.6, 1.4),
+              brightness_range=(0.9, 1.2), max_rotation=30)
+    kw.update(flags)
+    key = jax.random.PRNGKey(seed)
+    want = np.asarray(jax_augment.augment_batch(
+        key, jnp.asarray(imgs), jnp.asarray(border), jnp.asarray(lim_x),
+        jnp.asarray(lim_y), **kw))
+    fh, fv, tx, ty, f, angle, bright = jax_augment._affine_params(
+        key, b, limit_x=jnp.asarray(lim_x), limit_y=jnp.asarray(lim_y),
+        **kw)
+    draws = augment.Draws(*(torch.from_numpy(np.array(v)) for v in
+                            (fh, fv, tx, ty, f, bright, angle)))
+    return imgs, border, draws, want, (fh, fv, tx, ty, f, angle)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("flags", [{}, dict(zoom=False, brightness=False),
+                                   dict(flip=False, translate=False)])
+def test_rotation_warp_matches_jax_on_its_draws(seed, flags):
+    imgs, border, draws, want, _ = _rotation_case(seed, **flags)
+    got = augment.augment_batch(torch.from_numpy(imgs), draws,
+                                torch.from_numpy(border)).numpy()
+    assert got.shape == want.shape and got.dtype == np.float32
+    levels = np.abs(got - want)
+    far = levels > 1e-3
+    assert far.mean() <= 1e-3, far.mean()
+    assert levels[far].max(initial=0.0) <= 1.0 + 1e-3
+    assert bool((draws.angle != 0).any())
+    # the border shows where the chain moves content out of the frame
+    assert (want == np.floor(np.clip(border[:, None, None] * np.asarray(
+        draws.bright)[:, None, None], 0, 255))).any()
+
+
+def test_inverse_map_matches_jax():
+    imgs, _, draws, _, (fh, fv, tx, ty, f, angle) = _rotation_case(4)
+    h, w = imgs.shape[1:]
+    sx, sy = augment.compose_inverse(draws, h, w)
+    oy = jnp.broadcast_to(jnp.arange(h, dtype=jnp.float32)[:, None], (h, w))
+    ox = jnp.broadcast_to(jnp.arange(w, dtype=jnp.float32)[None, :], (h, w))
+    for i in range(imgs.shape[0]):
+        inv = jax_augment._compose_inverse(fh[i], fv[i], tx[i], ty[i], f[i],
+                                           angle[i], h, w)
+        wx, wy = inv(ox, oy)
+        np.testing.assert_allclose(sx[i].numpy(), np.asarray(wx), rtol=0,
+                                   atol=1e-3)
+        np.testing.assert_allclose(sy[i].numpy(), np.asarray(wy), rtol=0,
+                                   atol=1e-3)
+
+
+def test_rotation_draws_are_integer_degrees_in_range():
+    lim = torch.zeros(20000, dtype=torch.int32)
+    d = augment.draw_params(torch.Generator().manual_seed(2), 20000, lim,
+                            lim, rotate=True, max_rotation=10)
+    assert d.angle.dtype == torch.float32
+    assert torch.equal(d.angle, torch.round(d.angle))
+    assert set(d.angle.int().tolist()) == set(range(-10, 11))
+    off = augment.draw_params(torch.Generator().manual_seed(2), 5, lim[:5],
+                              lim[:5])
+    assert float(off.angle.abs().sum()) == 0.0

@@ -9,8 +9,11 @@ without JAX::
 
 Tolerances: K1 in float32 within 1e-3/255 of the plain version (the kernel
 repeats its float steps one by one, so in practice they agree exactly), in
-bfloat16 within one bf16 ulp of the plain version cast to bf16; K2 exact
-(bool masks, and the same step count per image), in each of its three forms.
+bfloat16 within one bf16 ulp of the plain version cast to bf16, on the 0-255
+scale (``raw``) within 1e-3; K2 exact (bool masks, and the same step count
+per image), in each of its three forms. The other model families: the eval
+forward on the card (float32, TF32 off) against the CPU within ``rtol=1e-4,
+atol=1e-5`` of the logits; a train step with the rotation warp on the card.
 """
 
 import numpy as np
@@ -396,3 +399,74 @@ def test_mixed_train_step_on_the_card(cuda, tmp_path):
     torch.cuda.synchronize()
     assert resize_pad.train_launches == before + len(batch.stores)
     assert np.isfinite(float(loss)) and float(n) == float(batch.weights.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [_slots, _shelf])
+def test_raw_form_matches_plain_version(cuda, make):
+    pixels, meta = make(np.random.default_rng(4))
+    pix = torch.from_numpy(pixels).to(cuda)
+    m = torch.from_numpy(meta).to(cuda)
+    before = resize_pad.launches
+    got = resize_pad.resize_pad(pix, m, 180, 180, 1, raw=True)
+    torch.cuda.synchronize()
+    assert resize_pad.launches == before + 1
+    want = preprocess.resize_pad_plain(pix, m, 180, 180, 1, raw=True)
+    assert float(got.max()) > 1.0
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["efficientnet_b0", "efficientnet_v2_s",
+                                  "mobilenet_v3_large", "vgg16_bn", "alexnet",
+                                  "convnext_tiny", "regnet_y_400mf"])
+def test_family_forward_card_against_cpu(cuda, name):
+    from sykepic_tpu_torch.models import registry
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = registry.init_weights(registry.build_model(name, 50), 0).eval()
+    x = torch.rand(8, 3, 180, 180, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = model(x)
+        model = model.to(cuda, memory_format=torch.channels_last)
+        got = model(x.to(cuda).contiguous(
+            memory_format=torch.channels_last)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_rotation_train_step_on_the_card(cuda, tmp_path):
+    from sykepic_tpu_torch.models import registry
+    from sykepic_tpu_torch.train.config import PreprocessSpec
+    from sykepic_tpu_torch.train.device_data import DeviceDataset
+    from sykepic_tpu_torch.train.trainer import Trainer
+    from sykepic_tpu_torch.utils import png
+
+    rng = np.random.default_rng(6)
+    paths, labels = [], []
+    for i in range(32):
+        h, w = rng.integers(10, 120, 2)
+        p = tmp_path / f"img_{i:03}.png"
+        png.write_png(p, rng.integers(0, 256, (h, w), dtype=np.uint8))
+        paths.append(p)
+        labels.append(i % 2)
+    spec = PreprocessSpec(180, 180, 3, border="mode")
+    ds = DeviceDataset(paths, labels, spec, batch_size=16, seed=0,
+                       shuffle=True, device=cuda)
+    model = registry.init_weights(
+        registry.build_model("efficientnet_b0", 2, head=(256, 128)), 0)
+    trainer = Trainer(model, optimizer="Adam", preprocess_spec=spec,
+                      augment_kwargs=augment.spec_kwargs(
+                          ("flip", "translate", "zoom", "rotate",
+                           "brightness"), (0.6, 1.4), (0.95, 1.1), 10),
+                      device=cuda, dtype="bfloat16")
+    before = (resize_pad.launches, resize_pad.train_launches)
+    batch = next(iter(ds))
+    loss, _, n = trainer.train_batch(batch, 0, (1e-3, 0.0, 0.0))
+    torch.cuda.synchronize()
+    parts = len(getattr(batch, "stores", (None,)))
+    # the rotation route: K1's eval form (0-255 scale), one launch a part
+    assert (resize_pad.launches, resize_pad.train_launches) == (
+        before[0] + parts, before[1])
+    assert np.isfinite(float(loss)) and float(n) > 0

@@ -144,9 +144,17 @@ def test_load_model_state_from_either_format(flax_model, tmp_path):
         checkpoint.load_model_state(tmp_path)
 
 
-def test_other_families_name_their_slice():
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        build_model("efficientnet_b0", 3)
+def test_registry_names_equal_jax():
+    from sykepic_tpu_torch.models import MODEL_REGISTRY
+
+    assert list(MODEL_REGISTRY) == list(jregistry.MODEL_REGISTRY)
+    assert len(MODEL_REGISTRY) == 50
+
+
+def test_other_families_build_and_unknown_names_raise():
+    model = build_model("efficientnet_b0", 3)
+    assert model.network == "efficientnet_b0"
+    assert model.head[-1].out_features == 3
     with pytest.raises(ValueError):
         build_model("not_a_network", 3)
 

@@ -227,14 +227,18 @@ def test_side_modes_are_not_ported_yet(trained, flag, value):
               *value])
 
 
-def test_rotation_and_missing_card_raise(trained, tmp_path):
+def test_rotation_trains_and_missing_card_raises(trained, tmp_path):
     _, _, tmp = trained
     text = (tmp / "train.ini").read_text().replace(
-        "flip, translate, zoom, brightness", "flip, rotate").replace(
-        f"path = {tmp / 'models'}", f"path = {tmp_path / 'models'}")
+        "flip, translate, zoom, brightness",
+        "flip, translate, zoom, rotate, brightness").replace(
+        f"path = {tmp / 'models'}", f"path = {tmp_path / 'models'}").replace(
+        "max_epochs = 2", "max_epochs = 1")
     (tmp_path / "rot.ini").write_text(text)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["train", str(tmp_path / "rot.ini"), "--device", "cpu"])
+    model_dir = main(["train", str(tmp_path / "rot.ini"), "--device", "cpu"])
+    state = torch.load(model_dir / "train_state.pt", weights_only=True)
+    assert state["epoch"] == 1 and state["opt_state"]["count"] > 0
+    assert np.isfinite(state["metrics"]["min_val_loss"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             main(["train", str(tmp / "train.ini")])

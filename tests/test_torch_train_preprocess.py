@@ -142,3 +142,69 @@ def test_cpu_wrapper_counts_no_launch_and_writes_out():
         resize_pad.resize_pad(torch.from_numpy(canvas),
                               torch.from_numpy(meta), T, T, 3,
                               mean=torch.zeros(3))
+
+
+@pytest.mark.parametrize("canvas_hw", [(24, 40), (96, 200)])
+@pytest.mark.parametrize("norm", [False, True])
+def test_rotation_route_matches_the_jax_chain(canvas_hw, norm):
+    """The train step's route with ``rotate`` on: K1's eval form on the
+    0-255 scale (``raw``), the warp, ``/ 255``, the channel copy and the
+    normalisation, against the JAX step's ``resize_pad_batch_mxu`` ->
+    ``augment_batch`` -> ``/ 255`` -> repeat -> ``(x - mean) / std`` on the
+    same draws: at most 0.1% of pixels one level apart, the rest within
+    1e-3 (on the 0-255 scale)."""
+    import jax
+
+    canvas, meta, _, per_slot = _inputs(sum(canvas_hw) + 1, canvas_hw)
+    r = meta.shape[1]
+    lim_x, lim_y = augment.translate_limits(
+        per_slot["heights"], per_slot["widths"], *per_slot["geom"][:2], T, T)
+    kw = dict(flip=True, translate=True, zoom=True, rotate=True,
+              brightness=True, zoom_range=(0.6, 1.4),
+              brightness_range=(0.95, 1.1), max_rotation=10)
+    key = jax.random.PRNGKey(3)
+    img = jax_pre.resize_pad_batch_mxu(
+        jnp.asarray(per_slot["canvas"]), jnp.asarray(per_slot["heights"]),
+        jnp.asarray(per_slot["widths"]),
+        *(jnp.asarray(g) for g in per_slot["geom"]),
+        jnp.asarray(per_slot["border"]), T, T, dtype=jnp.float32)
+    img = jax_augment.augment_batch(key, img, jnp.asarray(per_slot["border"]),
+                                    jnp.asarray(lim_x), jnp.asarray(lim_y),
+                                    **kw)
+    img = jnp.repeat((img / 255.0)[..., None], 3, axis=-1)
+    mean = std = None
+    if norm:
+        img = (img - jnp.asarray(jax_pre.IMAGENET_MEAN)) / jnp.asarray(
+            jax_pre.IMAGENET_STD)
+        mean = torch.tensor(preprocess.IMAGENET_MEAN)
+        std = torch.tensor(preprocess.IMAGENET_STD)
+    want = np.asarray(img)
+    fh, fv, tx, ty, f, angle, bright = jax_augment._affine_params(
+        key, r, limit_x=jnp.asarray(lim_x), limit_y=jnp.asarray(lim_y), **kw)
+    draws = augment.Draws(*(torch.from_numpy(np.array(v)) for v in
+                            (fh, fv, tx, ty, f, bright, angle)))
+    before = resize_pad.launches
+    raw = resize_pad.resize_pad(torch.from_numpy(canvas),
+                                torch.from_numpy(meta), T, T, 1, raw=True)
+    assert resize_pad.launches == before  # CPU tensors: the plain version
+    warped = augment.augment_batch(raw[..., 0], draws,
+                                   torch.from_numpy(meta[9]))
+    got = preprocess.to_channels(warped, 3, torch.float32, mean, std).numpy()
+    assert got.shape == want.shape == (r, T, T, 3)
+    scale = 255.0 * (np.asarray(preprocess.IMAGENET_STD) if norm else 1.0)
+    levels = np.abs(got - want) * scale
+    far = levels > 1e-3
+    assert far.mean() <= 1e-3, far.mean()
+    assert levels[far].max(initial=0.0) <= 1.0 + 1e-3
+
+
+def test_raw_form_keeps_the_0_255_scale():
+    canvas, meta, _, _ = _inputs(9, (32, 64), r=12)
+    pix, m = torch.from_numpy(canvas), torch.from_numpy(meta)
+    raw = resize_pad.resize_pad(pix, m, T, T, 1, raw=True)
+    scaled = resize_pad.resize_pad(pix, m, T, T, 1)
+    assert float(raw.max()) > 1.0
+    torch.testing.assert_close(raw / 255.0, scaled, rtol=1e-6, atol=0)
+    assert torch.equal(raw[..., 0], preprocess.resize_pad_batch(
+        pix, *(m[i] for i in range(3, 10)), T, T, y_origin=m[1],
+        x_origin=m[2], win_idx=m[0]))

@@ -37,6 +37,7 @@ from sykepic_tpu.train import trainer as jax_trainer
 from sykepic_tpu.train.config import PreprocessSpec as JaxSpec
 from sykepic_tpu.train.input import HostBatch as JaxHostBatch
 from sykepic_tpu_torch.models import checkpoint, registry
+from sykepic_tpu_torch.ops import resize_pad
 from sykepic_tpu_torch.train import trainer as port
 from sykepic_tpu_torch.train.config import PreprocessSpec
 from sykepic_tpu_torch.train.device_data import DeviceDataset
@@ -88,10 +89,9 @@ def _torch_layout(name, a):
     return a
 
 
-def _leaf(tree, name, ranks, collection=None):
-    path = checkpoint.flax_path(name, ranks)
-    node = tree if collection is None else tree[collection]
-    for k in path[1:] if collection is None else path[1:]:
+def _leaf(tree, name, paths):
+    node = tree
+    for k in paths[name][1:]:
         node = node[k]
     return node
 
@@ -103,10 +103,10 @@ def test_label_params_groups_equal(network):
     want = jax_trainer.label_params(variables["params"])
     ported = registry.build_model(network, 4, head=(8,))
     got = port.param_groups(ported)
-    ranks = checkpoint.head_ranks(ported.state_dict())
+    paths = checkpoint.flax_paths(ported.state_dict())
     assert len(got) == len(jax.tree.leaves(want))
     for name, group in got.items():
-        assert group == _leaf(want, name, ranks), name
+        assert group == _leaf(want, name, paths), name
     assert set(got.values()) == {0, 1, 2}
     assert all(g == 1 for n, g in got.items()
                if n.startswith("layer4") and ".bn" not in n
@@ -228,7 +228,7 @@ def test_one_step_matches_jax(jax_variables, optimizer):
     assert float(pn) == float(n) and float(pc) == float(c)
     assert float(pls) / float(pn) == pytest.approx(want_loss, rel=1e-5)
 
-    ranks = checkpoint.head_ranks(before)
+    paths = checkpoint.flax_paths(before)
     jparams = jax.device_get(jt.params)
     jstats = jax.device_get(jt.batch_stats)
     # optax's own transform on the port's gradients, from the same weights
@@ -238,18 +238,18 @@ def test_one_step_matches_jax(jax_variables, optimizer):
     p0 = _copy(variables["params"])
     updates, _ = tx.update(flax_grads, tx.init(p0), p0)
     for name, g, p in zip(pt.names, pt.grads, pt.params):
-        jg = _torch_layout(name, _leaf(jgrads, name, ranks))
+        jg = _torch_layout(name, _leaf(jgrads, name, paths))
         scale = float(np.abs(jg).max())
         np.testing.assert_allclose(g.numpy(), jg, rtol=0,
                                    atol=1e-4 * scale + 1e-12, err_msg=name)
         lr = lrs[pt.labels[pt.names.index(name)]]
         got = p.detach().numpy()
         start = before[name].numpy()
-        want = start - lr * _torch_layout(name, _leaf(updates, name, ranks))
+        want = start - lr * _torch_layout(name, _leaf(updates, name, paths))
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * lr,
                                    err_msg=name)
         # against the JAX step itself, where its gradient is known to 1%
-        jp = _torch_layout(name, _leaf(jparams, name, ranks))
+        jp = _torch_layout(name, _leaf(jparams, name, paths))
         live = np.abs(jg) > 1e-2 * scale
         np.testing.assert_allclose(
             got[live], jp[live], rtol=0,
@@ -257,11 +257,7 @@ def test_one_step_matches_jax(jax_variables, optimizer):
             err_msg=name)
     for name, v in model.state_dict().items():
         if name.endswith(("running_mean", "running_var")):
-            path = checkpoint.flax_path(name, ranks)
-            jv = jstats
-            for k in path[1:]:
-                jv = jv[k]
-            jv = np.asarray(jv)
+            jv = np.asarray(_leaf(jstats, name, paths))
             np.testing.assert_allclose(
                 v.numpy(), jv, rtol=1e-5,
                 atol=1e-5 * float(np.abs(jv).max()), err_msg=name)
@@ -361,11 +357,18 @@ def test_per_step_loop_equals_whole_epoch_call(jax_variables, mixed_paths):
     assert torch.equal(t_loop.gen.get_state(), t_epoch.gen.get_state())
 
 
-def test_rotation_and_unknown_optimizer_raise(jax_variables):
+def test_rotation_trains_and_unknown_optimizer_raises(jax_variables):
     _, variables = jax_variables
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.Trainer(_port_model(variables), device="cpu",
+    t = port.Trainer(_port_model(variables), device="cpu",
                      preprocess_spec=PreprocessSpec(32, 32),
-                     augment_kwargs=dict(rotate=True, max_rotation=10))
+                     augment_kwargs=dict(flip=True, rotate=True,
+                                         max_rotation=10), seed=1)
+    canvas, hs, ws, labels, weights = _batch(3)
+    before = resize_pad.launches
+    loss, _, n = t.train_batch(
+        HostBatch(canvas, hs, ws, labels, weights, [None] * len(hs)), 0,
+        (1e-3, 0.0, 0.0))
+    assert np.isfinite(float(loss)) and float(n) == float(weights.sum())
+    assert resize_pad.launches == before  # the CPU takes the plain version
     with pytest.raises(ValueError):
         port.make_optimizer("lamb")
