@@ -117,6 +117,23 @@ Phases, one JSON object per line on stdout:
    trained directory. Printed: images/s of epoch 2 and of one more steady
    epoch, and a profiled epoch's device time by kind.
 
+12. ``parallel``: the multi-GPU path on the one card, a NCCL group at
+   world size 1 with a data mesh over it
+   (``sykepic_tpu_torch.parallel``). The data-parallel trainer (full
+   width, the ``train`` phase's set, batch 256, bfloat16, flip,
+   translate, zoom and brightness, three whole epochs at stage 2, cuDNN
+   deterministic) against the trainer without a group from the same
+   weights and seed: the steady epochs' losses within 1e-5 relative (the
+   trainer without a group run twice gives the run-to-run floor); K1's
+   train form launched once per bucket and step. ``prob`` on the
+   workload through ``Classifier(mesh=data_mesh())`` against the run
+   without a mesh (the same files, ids and argmax, within 1.2e-5; K1 once
+   per dispatch), and the fused pass on the comparison set (features
+   within 1e-5 relative; K1 and K2 launched). Printed: the steady step ms
+   with the group and without it, ``prob``'s ROIs/s with the mesh and
+   without it, the launches, and
+   ``torch.distributed.is_nccl_available()``.
+
 Then the ``kernels`` line (K1's eval form, K1's train form, K2), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -1768,6 +1785,199 @@ def phase_families(run: dict, smi: str) -> dict:
     return {"prob": prob, "train": train}
 
 
+# -- multi-GPU: the data-parallel trainer and the engine under a mesh ----------
+
+PARALLEL_LOSS_RTOL = 1e-5
+PARALLEL_LRS = (1e-3, 1e-4, 1e-5)
+
+
+def _epochs(trainer, plans) -> list:
+    """Whole-epoch calls over ``plans`` (stage 2); loss, seconds, steps."""
+    out = []
+    for stores, idxs, wts in plans:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ls, _, n = trainer.train_epoch_mixed(stores, idxs, wts, 2,
+                                             PARALLEL_LRS)
+        loss = float(ls) / float(n)  # synchronises
+        out.append({"loss": loss, "seconds": time.perf_counter() - t0,
+                    "steps": int(wts.shape[0]), "buckets": len(stores)})
+    return out
+
+
+def _prob_trees_agree(a: Path, b: Path, what: str) -> dict:
+    """Two ``.prob.csv`` trees: the same files and ids, the same argmax
+    outside ties within two quanta, values within ``PROB_BOUND``."""
+    files_a = sorted(p.relative_to(a) for p in a.rglob("*.prob.csv"))
+    files_b = sorted(p.relative_to(b) for p in b.rglob("*.prob.csv"))
+    check(files_a == files_b and files_a, f"{what}: CSV files differ")
+    worst, rows, argmax_diff = 0.0, 0, 0
+    for rel in files_a:
+        ra = np.array([[float(v) for v in line.split(",")]
+                       for line in (a / rel).read_text().splitlines()[1:]])
+        rb = np.array([[float(v) for v in line.split(",")]
+                       for line in (b / rel).read_text().splitlines()[1:]])
+        check(ra.shape == rb.shape and (ra[:, 0] == rb[:, 0]).all(),
+              f"{what}: ROI ids differ in {rel}")
+        pa, pb = ra[:, 1:], rb[:, 1:]
+        top2 = np.sort(pa, axis=1)[:, -2:]
+        clear = (top2[:, 1] - top2[:, 0]) > 2 * PROB_BOUND
+        argmax_diff += int((pa.argmax(1) != pb.argmax(1))[clear].sum())
+        worst = max(worst, float(np.abs(pa - pb).max()))
+        rows += len(ra)
+    check(worst <= PROB_BOUND, f"{what}: max |dp| {worst}")
+    check(argmax_diff == 0, f"{what}: argmax differs on {argmax_diff} ROIs")
+    return {"files": len(files_a), "rois": rows, "max_abs_dp": worst}
+
+
+def phase_parallel(run: dict, model_dir: Path, counts: dict,
+                   smi: str) -> dict:
+    """The multi-GPU path on the one card: a NCCL group at world size 1
+    and a data mesh over it. The trainer without a group, then the
+    data-parallel trainer (full width, the train phase's set, three epochs
+    at stage 2, bfloat16; cuDNN deterministic for both), whose steady
+    epochs' losses must be within 1e-5 relative; ``prob`` and the fused pass
+    without a mesh and through ``Classifier(mesh=data_mesh())``, the CSVs
+    and features compared. Returns K1's and K2's launches on the mesh
+    runs."""
+    import copy
+
+    import torch.distributed as dist
+
+    from sykepic_tpu_torch import parallel
+    from sykepic_tpu_torch.compute import probability
+    from sykepic_tpu_torch.compute.engine import Classifier
+    from sykepic_tpu_torch.models import registry
+    from sykepic_tpu_torch.ops import flood, resize_pad
+    from sykepic_tpu_torch.train.config import PreprocessSpec
+    from sykepic_tpu_torch.train.device_data import DeviceDataset
+    from sykepic_tpu_torch.train.trainer import Trainer
+    from sykepic_tpu_torch.utils import files
+
+    check(not parallel.is_initialized(), "a process group is already up")
+    spec = PreprocessSpec(180, 180, 3, border="mode")
+    aug = dict(flip=True, translate=True, zoom=True, brightness=True,
+               zoom_range=(0.6, 1.4), brightness_range=(0.95, 1.1))
+    paths = sorted(run["dataset"].rglob("*.png"))
+    labels = [int(p.parent.name.split("_")[1]) for p in paths]
+    t0 = time.perf_counter()
+    ds = DeviceDataset(paths, labels, spec, 256, seed=3, shuffle=True,
+                       device="cuda")
+    set_up_s = time.perf_counter() - t0
+    plans = [ds.epoch_mixed_stacked(shuffle=True) for _ in range(3)]
+    model0 = registry.init_weights(registry.build_model(
+        "resnet18", TRAIN_CLASSES, head=(256, 128)), seed=1)
+    samples = list(counts)
+    small = files.list_sample_paths(WORK / "raw_compare")
+
+    def trainer(mesh=None):
+        return Trainer(copy.deepcopy(model0), "Adam", spec, aug, seed=5,
+                       device="cuda", dtype="bfloat16", mesh=mesh)
+
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        # without a group: the trainer twice (the run-to-run floor), then
+        # prob and the fused pass
+        plain = _epochs(trainer(), plans)
+        again = _epochs(trainer(), plans)
+        out_plain, out_mesh = WORK / "par_plain", WORK / "par_mesh"
+        t0 = time.perf_counter()
+        probability.main(samples, model_dir, out_plain, BATCH, force=True,
+                         progress_bar=False)
+        torch.cuda.synchronize()
+        prob_plain_s = time.perf_counter() - t0
+        fused_plain = fused(Classifier(model_dir, batch_size=BATCH), small)
+
+        dev = parallel.init_process_group("cuda", WORK / "nccl_store", 0, 1)
+        try:
+            mesh = parallel.data_mesh()
+            check(dist.get_backend() == "nccl", "the group is not NCCL")
+            resize_pad.launches = resize_pad.train_launches = 0
+            dp = trainer(mesh)
+            check(dp.mesh is mesh and dp.n_data == 1, "no data mesh")
+            par = _epochs(dp, plans)
+            torch.cuda.synchronize()
+            k1_train = resize_pad.train_launches
+            want = sum(e["buckets"] * e["steps"] for e in par)
+            check(k1_train == want, f"K1's train form launched {k1_train} "
+                  f"times on the mesh for {want} bucket-steps")
+
+            resize_pad.launches = 0
+            t0 = time.perf_counter()
+            probability.main(samples, model_dir, out_mesh, BATCH,
+                             force=True, progress_bar=False, mesh=mesh)
+            torch.cuda.synchronize()
+            prob_s = time.perf_counter() - t0
+            k1_prob = resize_pad.launches
+            dispatches = count_dispatches(samples, "shelf")
+            check(k1_prob == dispatches, f"K1 launched {k1_prob} times on "
+                  f"the mesh for {dispatches} dispatches")
+
+            for c in FLOOD_COUNTERS.values():
+                setattr(flood, c, 0)
+            resize_pad.launches = 0
+            clf = Classifier(model_dir, batch_size=BATCH, mesh=mesh)
+            fused_mesh = fused(clf, small)
+            clf.release()
+            torch.cuda.synchronize()
+            k1_fused, k2_fused = resize_pad.launches, flood_counts()
+            check(k1_fused > 0 and sum(k2_fused.values()) > 0,
+                  "the fused pass on the mesh launched no K1 or K2")
+        finally:
+            parallel.destroy_process_group()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = det
+
+    rel = [abs(b["loss"] - a["loss"]) / abs(a["loss"])
+           for a, b in zip(plain, par)]
+    floor = [abs(b["loss"] - a["loss"]) / abs(a["loss"])
+             for a, b in zip(plain, again)]
+    check(all(np.isfinite([e["loss"] for e in par])), "non-finite loss")
+    check(max(rel[1:]) <= PARALLEL_LOSS_RTOL,
+          f"the data-parallel steady epochs' losses are {rel[1:]} off")
+    prob = _prob_trees_agree(out_plain, out_mesh, "prob under the mesh")
+    check(fused_plain.keys() == fused_mesh.keys(), "fused ROI sets differ")
+    keys = sorted(fused_plain)
+    dp_fused = max(float(np.abs(fused_plain[k][0] - fused_mesh[k][0]).max())
+                   for k in keys)
+    feat_rel = max(float(np.max(np.abs(fused_plain[k][1] - fused_mesh[k][1])
+                                / np.maximum(np.abs(fused_plain[k][1]), 1)))
+                   for k in keys)
+    check(dp_fused <= PROB_BOUND and feat_rel <= 1e-5,
+          f"fused pass under the mesh: |dp| {dp_fused}, features {feat_rel}")
+
+    def step_ms(epochs):  # the steady epochs 2 and 3
+        return 1e3 * sum(e["seconds"] for e in epochs[1:]) / sum(
+            e["steps"] for e in epochs[1:])
+
+    out = {"phase": "parallel", "gpu": smi, "backend": "nccl",
+           "nccl_available": dist.is_nccl_available(), "world_size": 1,
+           "device": str(dev), "set_up_s": set_up_s,
+           "train": {"images": len(paths), "batch": 256, "dtype": "bfloat16",
+                     "cudnn_deterministic": True,
+                     "epochs_plain": plain, "epochs_plain_again": again,
+                     "epochs_group": par, "loss_rel_diff": rel,
+                     "loss_rel_diff_plain_again": floor,
+                     "steady_step_ms_plain": step_ms(plain),
+                     "steady_step_ms_plain_again": step_ms(again),
+                     "steady_step_ms_group": step_ms(par),
+                     "k1_train_launches": k1_train},
+           "prob": {**prob, "seconds_plain": prob_plain_s,
+                    "rois_per_s_plain": sum(counts.values()) / prob_plain_s,
+                    "seconds_mesh": prob_s,
+                    "rois_per_s_mesh": sum(counts.values()) / prob_s,
+                    "dispatches": dispatches, "k1_launches": k1_prob},
+           "pipeline": {"rois": len(keys), "max_abs_dp": dp_fused,
+                        "feat_max_rel_diff": feat_rel,
+                        "k1_launches": k1_fused, "k2_launches": k2_fused}}
+    emit(out)
+    return {"k1": {"train": k1_train, "prob": k1_prob, "pipeline": k1_fused},
+            "k2": sum(k2_fused.values())}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -1816,6 +2026,7 @@ def main() -> int:
     k1_train = timed("kernel_resize_pad_train", phase_kernel_train, run)
     timed("train_step_card_vs_cpu", phase_train_step_compare, run)
     families = timed("families", phase_families, run, smi)
+    par = timed("parallel", phase_parallel, run, model_dir, counts, smi)
     emit({"phase_seconds": seconds})
     k = main_case["f32"]
     emit({"kernels": [{
@@ -1830,6 +2041,9 @@ def main() -> int:
         # the rotation route of efficientnet_b0's training takes the eval
         # form; convnext_tiny's training the train form
         "families_train_launches": families["train"],
+        # prob and the fused pass through Classifier(mesh=) at world size 1
+        "parallel_launches": {"prob": par["k1"]["prob"],
+                              "pipeline": par["k1"]["pipeline"]},
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
@@ -1844,6 +2058,8 @@ def main() -> int:
         "source": "sykepic_tpu_torch/csrc/resize_pad.cu",
         "replaces": "sykepic_tpu/ops/pallas_preprocess.py:114",
         "launches": run["launches"]["train"],
+        # the data-parallel trainer's three epochs at world size 1
+        "parallel_launches": par["k1"]["train"],
         "max_abs_err": k1_train["max_abs_err"],
         # every bucket's launch of the first train step, f32, on its inputs
         "step_buckets_checked": run["step_k1"]["buckets"],
@@ -1864,6 +2080,8 @@ def main() -> int:
         "replaces": "sykepic_tpu/ops/pallas_flood.py:102",
         "launches": sum(k2_launches.values()),
         "launches_by_form": k2_launches,
+        # the fused pass through Classifier(mesh=) at world size 1
+        "parallel_launches": par["k2"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "device_ms": k2["device_ms"],

@@ -14,6 +14,14 @@ with the JAX package's argument surface plus ``--device``::
 ``pipeline`` runs only with ``--device-features`` (the fused on-device
 pass); its host-thread mode, ``train``'s ``--save-images``/``--dist``/
 ``--collage`` and the other sub-commands are ROADMAP Queue 1 item 12.
+
+Several cards (:mod:`sykepic_tpu_torch.parallel`): under ``torchrun
+--nproc-per-node N`` every sub-command's ranks form one group (NCCL, each
+rank on ``cuda:LOCAL_RANK``) and run on a data mesh over it; ``train`` with
+the default ``--device cuda`` on a host with more than one visible card
+starts one process per card by itself (``torch.multiprocessing.spawn``),
+as the JAX trainer's default mesh spans every device. With one card
+nothing changes.
 """
 
 from __future__ import annotations
@@ -79,11 +87,10 @@ def main(argv=None):
         help="One or more sample paths (raw file without suffix)",
     )
     prob_raw.add_argument(
-        "--image-dir", metavar="DIR",
-        help="Root directory of images (not ported yet)")
+        "--image-dir", metavar="DIR", help="Root directory of images")
     prob_raw.add_argument(
         "--images", nargs="+", metavar="FILE",
-        help="One or more image paths (not ported yet)")
+        help="One or more image paths")
     prob_parser.add_argument("-m", "--model", required=True, help="Model directory")
     prob_parser.add_argument("-o", "--out", required=True, help="Root output directory")
     prob_parser.add_argument(
@@ -155,8 +162,25 @@ def main(argv=None):
 
 
 def _train(args):
+    import torch
+
+    from . import parallel
     from .train import loop
 
+    if parallel.launched_by_torchrun():
+        args.device = str(parallel.init_process_group(args.device))
+        try:
+            return loop.main(args)
+        finally:
+            parallel.destroy_process_group()
+    if (args.device == "cuda" and torch.cuda.is_available()
+            and torch.cuda.device_count() > 1):
+        # the ranks get the plain options: a spawned process cannot
+        # unpickle anything of this module (see loop.rank_main)
+        options = {k: v for k, v in vars(args).items() if not callable(v)}
+        parallel.spawn(loop.rank_main, torch.cuda.device_count(), "cuda",
+                       args=(options,))
+        return None
     return loop.main(args)
 
 

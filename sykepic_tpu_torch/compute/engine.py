@@ -25,6 +25,25 @@ The knobs and their defaults are the JAX package's, because they set the
 outputs: ``SYKEPIC_PACKING``, ``SYKEPIC_WIRE_CODEC``,
 ``SYKEPIC_D2H_COMPACT``, ``SYKEPIC_BUCKETS`` and the depths of
 :mod:`sykepic_tpu_torch.utils.depths`.
+
+Under a mesh (``Classifier(mesh=...)``, one process per card; see
+:mod:`sykepic_tpu_torch.parallel`) rank 0 decodes, packs and drains as
+above, and every dispatch is spread over the ranks, as the JAX package
+shards it (``sykepic_tpu/compute/engine.py:776-782``):
+
+- a header (the dispatch's kind and shapes) is broadcast first;
+- shelf windows (or their wire payload, decoded on every rank) and the
+  ``(10, R)`` slot metadata are broadcast, and data rank ``d`` takes slot
+  columns ``[d R/n, (d + 1) R/n)``;
+- slot canvases are scattered along the batch axis (so the wire codec
+  serves the slot path only without a mesh) with their metadata columns;
+- every rank runs K1 and the network (and, in the fused pass, the feature
+  program with K2) on its share; the result rows are gathered to rank 0.
+
+The other ranks serve dispatches in :meth:`Classifier.follow` until rank 0
+calls :meth:`Classifier.release`. ``R`` is a multiple of the data axis
+(``batch_size`` must be, as in JAX; the packers pad to it), and the ranks
+of one data row along a ``model`` axis hold the same share.
 """
 
 from __future__ import annotations
@@ -41,8 +60,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import device as device_mod
+from .. import parallel
 from ..ingest import pack, shelf, wirecodec
 from ..models import checkpoint
 from ..ops import features_device, preprocess, wiredecode
@@ -59,6 +80,10 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # 17-bit all-ones: unreachable for finite rows (clipped to <= 131070), so
 # it round-trips non-finite device values back to NaN on the host
 _NONFINITE_SENTINEL = (1 << 17) - 1
+
+# the kinds of a mesh dispatch's header (Classifier.follow)
+_RELEASE, _SHELF, _SHELF_WIRE, _SLOTS, _FUSED = range(5)
+_HEADER = 6  # int64 words: the kind, then up to five sizes
 
 
 def _env_on(name: str) -> bool:
@@ -124,11 +149,28 @@ class Classifier:
         float32) or "bfloat16" (autocast; the kernel writes bf16 pixels).
     device : str or torch.device
         ``cuda`` (the default) or ``cpu``; ``cuda`` without a card raises.
+    mesh : DeviceMesh, optional
+        A mesh of :mod:`sykepic_tpu_torch.parallel` over ranks whose
+        devices are like ``device`` (one process per card): dispatches
+        spread over its ``data`` axis, and wide kernels shard over its
+        ``model`` axis. Every rank builds the classifier; rank 0 feeds it
+        and the others call :meth:`follow`.
     """
 
     def __init__(self, model_dir, batch_size: int = 256,
-                 dtype: str = "float32", buckets="auto", device=None):
+                 dtype: str = "float32", buckets="auto", device=None,
+                 mesh=None):
         self.device = device_mod.resolve(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh cannot "
+                                 f"classify on {self.device}")
+            n_data = parallel.data_axis_size(mesh)
+            if batch_size % n_data != 0:
+                raise ValueError(
+                    f"batch_size {batch_size} not divisible by the data "
+                    f"mesh axis ({n_data})")
         model_dir = Path(model_dir)
         if buckets == "auto":
             # None = dynamic fine grid; SYKEPIC_BUCKETS=fixed selects the
@@ -159,7 +201,11 @@ class Classifier:
                               memory_format=torch.channels_last).eval()
         self.d2h_compact = _env_on("SYKEPIC_D2H_COMPACT")
         self.packing = os.environ.get("SYKEPIC_PACKING", "shelf").lower()
-        self._batch_multiple = 1
+        self._batch_multiple = parallel.data_axis_size(mesh)
+        if parallel.has_model_axis(mesh):
+            # tensor parallel: wide late-stage kernels shard over the model
+            # axis, the rest stays whole on every rank
+            parallel.shard_wide_kernels(self.model, mesh)
         # shelf dispatches size themselves by window bytes; batch_size
         # still bounds the slot count when raised above the 1024 floor,
         # and shelf.SLOT_CAP hard-bounds it
@@ -258,6 +304,8 @@ class Classifier:
         if meta is None:
             meta = self._shelf_meta(batch)
         with self.timer.stage("device.dispatch"), torch.inference_mode():
+            if self.mesh is not None:
+                return self._lead_shelf(batch, meta)
             return self._forward(self._pixels(batch, batch.windows),
                                  self._put(meta))
 
@@ -267,8 +315,148 @@ class Classifier:
         if meta is None:
             meta = self._host_meta(batch)
         with self.timer.stage("device.dispatch"), torch.inference_mode():
+            if self.mesh is not None:
+                return self._lead_slots(_SLOTS, batch.canvas, meta)[0]
             return self._forward(self._pixels(batch, batch.canvas),
                                  self._put(meta))
+
+    # -- mesh ----------------------------------------------------------------
+
+    @property
+    def follower(self) -> bool:
+        """Whether this process serves rank 0's dispatches (a mesh rank
+        other than 0) rather than feeding its own."""
+        return self.mesh is not None and parallel.rank() != 0
+
+    def _single(self, what: str) -> None:
+        if self.mesh is not None:
+            raise ValueError(f"{what} measures one device: build the "
+                             "Classifier without a mesh")
+
+    def _header(self, kind: int = _RELEASE, *sizes) -> list:
+        """Broadcast rank 0's header (``kind`` and sizes); returns it."""
+        h = torch.zeros(_HEADER, dtype=torch.int64)
+        h[:1 + len(sizes)] = torch.tensor([kind, *sizes])
+        h = h.to(self.device)
+        dist.broadcast(h, 0)
+        return h.tolist()
+
+    def _bcast(self, host, shape, dtype) -> torch.Tensor:
+        """Rank 0's ``host`` array (others: the ``shape`` to receive) as a
+        device tensor on every rank."""
+        if host is not None:
+            t = self._put(host)
+        else:
+            t = torch.empty(shape, dtype=dtype, device=self.device)
+        dist.broadcast(t, 0)
+        return t
+
+    def _share(self, meta: torch.Tensor, rebase: bool):
+        """This rank's slot columns of ``meta``: ``(lo, hi, columns)``;
+        with ``rebase`` the window index counts from the share's first
+        canvas (scattered slot canvases)."""
+        lo, hi = parallel.shard_rows(meta.shape[1],
+                                     parallel.data_axis_size(self.mesh),
+                                     parallel.axis_index(self.mesh, "data"))
+        cols = meta[:, lo:hi].clone()
+        if rebase:
+            cols[0] -= lo
+        return lo, hi, cols
+
+    def _gather(self, local: torch.Tensor):
+        """Every rank's result rows to rank 0, in data order (one copy per
+        data row: the first rank along a ``model`` axis); None elsewhere."""
+        dtype = local.dtype
+        # as bytes: neither NCCL nor gloo reduces or moves int16
+        local = local.contiguous().view(torch.uint8)
+        lead = parallel.rank() == 0
+        parts = ([torch.empty_like(local) for _ in range(dist.get_world_size())]
+                 if lead else None)
+        dist.gather(local, parts, dst=0)
+        if not lead:
+            return None
+        step = parallel.axis_size(self.mesh, "model")
+        return torch.cat(parts[::step]).view(dtype)
+
+    def _lead_shelf(self, batch, meta: np.ndarray) -> torch.Tensor:
+        """Rank 0's half of a shelf dispatch under a mesh."""
+        r = meta.shape[1]
+        if batch.wire is not None:
+            w = batch.wire
+            self._header(_SHELF_WIRE, *w.plane.shape, len(w.exc), r)
+            pixels = wiredecode.decode_tensors(
+                *(self._bcast(a, None, None)
+                  for a in (w.plane, w.exc, w.flags)))
+        else:
+            self._header(_SHELF, *batch.windows.shape, r)
+            pixels = self._bcast(batch.windows, None, None)
+        return self._serve_shelf(pixels, self._bcast(meta, None, None))
+
+    def _serve_shelf(self, pixels, meta):
+        _, _, cols = self._share(meta, rebase=False)
+        return self._gather(self._forward(pixels, cols))
+
+    def _lead_slots(self, kind: int, canvas: np.ndarray, meta: np.ndarray):
+        """Rank 0's half of a slot (or fused) dispatch under a mesh."""
+        self._header(kind, *canvas.shape)
+        return self._serve_slots(kind, canvas.shape, canvas,
+                                 self._bcast(meta, None, None))
+
+    def _serve_slots(self, kind, shape, canvas, meta):
+        """Scatter the canvas rows, run this rank's share, gather."""
+        lo, hi, cols = self._share(meta, rebase=True)
+        mine = torch.empty((hi - lo, *shape[1:]), dtype=torch.uint8,
+                           device=self.device)
+        chunks = None
+        if canvas is not None:
+            n, step = (parallel.data_axis_size(self.mesh),
+                       parallel.axis_size(self.mesh, "model"))
+            rows = [parallel.shard_rows(shape[0], n, r // step)
+                    for r in range(dist.get_world_size())]
+            chunks = [self._put(canvas[a:b]) for a, b in rows]
+        dist.scatter(mine, chunks, src=0)
+        out = [self._gather(self._forward(mine, cols))]
+        if kind == _FUSED:
+            out.append(self._gather(features_device.device_features(
+                mine, cols[3], cols[4])))
+        return out
+
+    def follow(self) -> None:
+        """Serve rank 0's dispatches until it calls :meth:`release`: the
+        loop of every mesh rank but 0."""
+        if not self.follower:
+            raise ValueError("follow() runs on the ranks of a mesh other "
+                             "than 0")
+        with torch.inference_mode():
+            while True:
+                kind, *sizes = self._header()
+                if kind == _RELEASE:
+                    return
+                with self.timer.stage("device.dispatch"):
+                    if kind == _SHELF:
+                        nc, h, w, r = sizes[:4]
+                        pixels = self._bcast(None, (nc, h, w), torch.uint8)
+                    elif kind == _SHELF_WIRE:
+                        nc, h, wh, n_exc, r = sizes
+                        pixels = wiredecode.decode_tensors(
+                            self._bcast(None, (nc, h, wh), torch.uint8),
+                            self._bcast(None, (n_exc,), torch.uint8),
+                            self._bcast(None, (nc,), torch.uint8))
+                    if kind in (_SHELF, _SHELF_WIRE):
+                        self._serve_shelf(pixels, self._bcast(
+                            None, (len(preprocess.META_ROWS), r),
+                            torch.int32))
+                        continue
+                    shape = tuple(sizes[:3])
+                    self._serve_slots(kind, shape, None, self._bcast(
+                        None, (len(preprocess.META_ROWS), shape[0]),
+                        torch.int32))
+
+    def release(self) -> None:
+        """Rank 0: end the other ranks' :meth:`follow` (a no-op without a
+        mesh)."""
+        if self.mesh is not None and not self.follower:
+            self._header(_RELEASE)
 
     def _host_rows(self, rows, n: int | None = None) -> np.ndarray:
         rows = rows.numpy() if torch.is_tensor(rows) else np.asarray(rows)
@@ -331,7 +519,10 @@ class Classifier:
                      else self._host_meta)
 
         def meta_fn(batch):
-            if self.wire_codec:
+            # slot canvases are scattered over a mesh, so the codec serves
+            # them only without one; shelf windows keep it either way
+            if self.wire_codec and (self.mesh is None
+                                    or self.packing == "shelf"):
                 self._encode_wire(batch)
             return host_meta(batch)
 
@@ -484,6 +675,7 @@ class Classifier:
         resident for the probe, so the stream is capped at ``max_batches``
         dispatches. Returns ``(n_rois, seconds_per_pass)``.
         """
+        self._single("onchip_rate")
         args_list = []
         n_rois = 0
         for batch, meta in itertools.islice(self._prepared(tagged_rois),
@@ -518,7 +710,7 @@ class Classifier:
             consolidate_tails=False)
 
         def meta_fn(batch):
-            if self.wire_codec:
+            if self.wire_codec and self.mesh is None:
                 self._encode_wire(batch)
             return self._host_meta(batch)
 
@@ -529,6 +721,8 @@ class Classifier:
         the canvas: K1 + the network, and the feature program. Returns the
         two device results without waiting for them."""
         with self.timer.stage("device.dispatch"), torch.inference_mode():
+            if self.mesh is not None:
+                return tuple(self._lead_slots(_FUSED, batch.canvas, meta))
             # uploaded (or wire-decoded) ONCE, shared by both programs
             canvas = self._pixels(batch, batch.canvas)
             probs = self._forward(canvas, self._put(meta))
@@ -582,6 +776,7 @@ class Classifier:
         metadata made resident first (raw pixels), then both programs of
         every dispatch back to back ``repeats`` times between two
         synchronizations. Returns ``(n_rois, seconds_per_pass)``."""
+        self._single("fused_onchip_rate")
         args_list = []
         n_rois = 0
         for batch, meta in itertools.islice(
@@ -613,6 +808,7 @@ class Classifier:
         the allocator's pools. With ``fused`` each slot shape also runs the
         feature program once, which builds K2 and makes the cuFFT plans.
         Returns the number of dispatches."""
+        self._single("precompile")
         slot_ceil = shelf.floor_slots(self._shelf_slot_cap,
                                       self._batch_multiple)
         keys = {

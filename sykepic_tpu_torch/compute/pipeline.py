@@ -13,6 +13,10 @@ The JAX package's other mode, host-thread features beside device
 classification (``device_features=False``), needs the host feature
 extractor; it comes with the ``feat`` sub-command (ROADMAP Queue 1 item 12)
 and raises ``NotImplementedError`` here.
+
+Under a mesh (``clf`` built with ``mesh=``; the CLI under ``torchrun``)
+rank 0 reads the samples and writes the CSVs, and each rank runs both
+programs on its share of every canvas batch.
 """
 
 from __future__ import annotations
@@ -45,17 +49,29 @@ def call(args):
             filtered.append(sample_path)
         else:
             log.warning(f"{sample_path.name} is over 1G, skipping")
-    clf = probability.prepare_model(args.model, batch_size=args.batch_size,
-                                    device=args.device)
-    return main(
-        filtered,
-        clf,
-        args.out,
-        feat_out_dir=args.feat_out or args.out,
-        force=args.force,
-        feature_threads=args.num_workers,
-        device_features=args.device_features,
-    )
+    from .. import parallel
+
+    mesh = None
+    device = args.device
+    if parallel.launched_by_torchrun():
+        device = parallel.init_process_group(args.device)
+        mesh = parallel.data_mesh()
+    try:
+        clf = probability.prepare_model(args.model,
+                                        batch_size=args.batch_size,
+                                        device=device, mesh=mesh)
+        return main(
+            filtered,
+            clf,
+            args.out,
+            feat_out_dir=args.feat_out or args.out,
+            force=args.force,
+            feature_threads=args.num_workers,
+            device_features=args.device_features,
+        )
+    finally:
+        if mesh is not None:
+            parallel.destroy_process_group()
 
 
 def main(
@@ -73,12 +89,20 @@ def main(
     device in the classification batch stream. ``feature_threads`` is
     accepted for the JAX signature (it sizes the host-thread mode).
 
-    Returns the set of sample names fully processed.
+    Returns the set of sample names fully processed (the empty set on the
+    other ranks of a mesh, which serve rank 0's dispatches).
     """
     if not device_features:
         raise NotImplementedError(_HOST_FEATURES_LATER)
-    return _main_device_features(
-        sample_paths, clf, prob_out_dir, feat_out_dir or prob_out_dir, force)
+    if clf.follower:
+        clf.follow()
+        return set()
+    try:
+        return _main_device_features(
+            sample_paths, clf, prob_out_dir, feat_out_dir or prob_out_dir,
+            force)
+    finally:
+        clf.release()
 
 
 def _plan(sample_paths, prob_out_dir, feat_out_dir, force):

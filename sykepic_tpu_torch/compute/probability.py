@@ -4,8 +4,10 @@
 
 Same contracts as the reference:
 
-- input modes: raw dir / sample list (the image-input modes need a PNG
-  reader and come in a later slice of the port)
+- input modes: raw dir / sample list / image dir / image list, with images
+  grouped by sample-name prefix (reference ``probability.py:27-43``); PNGs
+  are read by :mod:`sykepic_tpu_torch.utils.png` and colour reduced as
+  ``cv2.cvtColor(BGR2GRAY)`` does it, as the JAX package reads them
 - samples with a ``.roi`` over 1 GB are skipped (``:44-53``)
 - per-sample error isolation: faulty raw data logs and continues (``:106-115``)
 - skip-if-CSV-exists idempotency with ``force`` override (``:136-141``)
@@ -16,6 +18,11 @@ Same contracts as the reference:
 
 ROIs decode straight from the ``.roi`` payload into packed device batches,
 and ROIs of different samples share device batches.
+
+Under a mesh (:func:`prepare_model` with ``mesh=``, one process per card)
+rank 0 reads the samples, feeds the :class:`Classifier` and writes every
+CSV; the other ranks serve its dispatches (:meth:`Classifier.follow`) until
+rank 0 releases them at the end of :func:`main`.
 """
 
 from __future__ import annotations
@@ -26,17 +33,12 @@ from pathlib import Path
 import numpy as np
 
 from ..ingest import ifcb, native, pack
-from ..utils import files, logger
+from ..utils import files, logger, png
 from .engine import Classifier
 
 FILE_SUFFIX = ".prob"
 MAX_ROI_BYTES = 1e9
 log = logger.get_logger("prob")
-
-_IMAGES_LATER = (
-    "image inputs (--image-dir/--images) are not ported yet: they need a "
-    "PNG reader and come with the port's remaining CLI (ROADMAP slice 6)")
-
 
 def _progress(iterable, desc: str):
     """``tqdm`` over ``iterable`` where it is installed, else as is."""
@@ -48,29 +50,56 @@ def _progress(iterable, desc: str):
 
 
 def call(args):
-    """CLI adapter (argument surface = reference ``probability.py:27-64``)."""
+    """CLI adapter (argument surface = reference ``probability.py:27-64``).
+    Under ``torchrun`` (``WORLD_SIZE`` > 1) every rank runs it and the
+    classifier runs on a data mesh over the group."""
     if args.image_dir or args.images:
-        raise NotImplementedError(_IMAGES_LATER)
-    if args.raw:
-        sample_paths = files.list_sample_paths(args.raw)
-    else:
-        sample_paths = [Path(path) for path in args.samples]
-    filtered = []
-    for sample_path in sample_paths:
-        if sample_path.with_suffix(".roi").stat().st_size <= MAX_ROI_BYTES:
-            filtered.append(sample_path)
+        samples_as_images = True
+        if args.image_dir:
+            img_paths = sorted(Path(args.image_dir).rglob("*.png"))
         else:
-            log.warning(f"{sample_path.name} is over 1G, skipping")
-    main(
-        filtered,
-        args.model,
-        args.out,
-        args.batch_size,
-        args.num_workers,
-        args.force,
-        progress_bar=True,
-        device=args.device,
-    )
+            img_paths = sorted(Path(path) for path in args.images)
+        sample_paths = {}
+        for sample, img_path in ((p.name.rpartition("_")[0], p)
+                                 for p in img_paths):
+            sample_paths.setdefault(sample, []).append(img_path)
+    else:
+        samples_as_images = False
+        if args.raw:
+            sample_paths = files.list_sample_paths(args.raw)
+        else:
+            sample_paths = [Path(path) for path in args.samples]
+        filtered = []
+        for sample_path in sample_paths:
+            if sample_path.with_suffix(".roi").stat().st_size <= MAX_ROI_BYTES:
+                filtered.append(sample_path)
+            else:
+                log.warning(f"{sample_path.name} is over 1G, skipping")
+        sample_paths = filtered
+    from .. import parallel
+
+    mesh = None
+    if parallel.launched_by_torchrun():
+        device = parallel.init_process_group(args.device)
+        mesh = parallel.data_mesh()
+    else:
+        device = args.device
+    try:
+        main(
+            sample_paths,
+            args.model,
+            args.out,
+            args.batch_size,
+            args.num_workers,
+            args.force,
+            progress_bar=True,
+            samples_as_images=samples_as_images,
+            device=device,
+            mesh=mesh,
+        )
+    finally:
+        if mesh is not None:
+            parallel.destroy_process_group()
 
 
 def main(
@@ -81,26 +110,48 @@ def main(
     num_workers: int = 2,  # accepted for CLI parity; host feed is threaded
     force: bool = False,
     progress_bar: bool = True,
+    samples_as_images: bool = False,
     classifier: Classifier | None = None,
     device=None,
+    mesh=None,
 ):
     """Classify samples and write one ``.prob.csv`` per sample on
     ``device`` (``cuda`` unless the caller asks for ``cpu``).
+    ``samples_as_images``: ``sample_paths`` maps a sample name to its PNG
+    paths, and each sample's CSV lands in ``out_dir`` itself. ``mesh``: a
+    data (or data x model) mesh of :mod:`sykepic_tpu_torch.parallel`; every
+    rank calls this function, rank 0 does the file work.
 
-    Returns the set of sample names processed (reference ``:105-115``).
+    Returns the set of sample names processed (reference ``:105-115``);
+    the empty set on the other ranks of a mesh.
     """
     clf = classifier or prepare_model(
-        model_dir, batch_size=max(batch_size, 1), device=device)
-    return process_samples_batched(
-        sample_paths, clf, out_dir, force, progress_bar=progress_bar)
+        model_dir, batch_size=max(batch_size, 1), device=device, mesh=mesh)
+    if clf.follower:
+        clf.follow()
+        return set()
+    try:
+        if samples_as_images:
+            items = sample_paths.items()
+            for sample, img_paths in (
+                    _progress(items, "Processing samples") if progress_bar
+                    else items):
+                csv_path = Path(out_dir) / f"{sample}{FILE_SUFFIX}.csv"
+                process_images(img_paths, clf, csv_path, force)
+            return set(sample_paths)
+        return process_samples_batched(
+            sample_paths, clf, out_dir, force, progress_bar=progress_bar)
+    finally:
+        clf.release()
 
 
 def prepare_model(model_dir, batch_size: int = 256, dtype: str = "float32",
-                  device=None):
+                  device=None, mesh=None):
     """Load the model directory into a ready :class:`Classifier`
-    (reference ``probability.py:118-130``)."""
+    (reference ``probability.py:118-130``). ``mesh`` enables multi-card
+    runs (data axis; plus tensor parallel when it has a model axis)."""
     return Classifier(model_dir, batch_size=batch_size, dtype=dtype,
-                      device=device)
+                      device=device, mesh=mesh)
 
 
 def _sample_blocks(sample_paths):
@@ -234,6 +285,43 @@ def process_samples_batched(sample_paths, clf: Classifier, out_dir,
                 futures.append(writer.submit(flush, idx))
         written = {f.result() for f in futures}
     return written | skipped
+
+
+def process_images(img_paths, clf: Classifier, csv_path, force: bool = False):
+    """Classify loose PNG images (reference ``probability.py:165-177``)."""
+    csv_path = Path(csv_path)
+    if csv_path.is_file():
+        if force:
+            log.warning(f"{csv_path.name} already exists, overwriting")
+        else:
+            log.warning(f"{csv_path.name} already exists, skipping")
+            return
+    results = sorted(
+        (roi_id, probs)
+        for _, roi_id, probs in clf.classify_rois(_read_images(img_paths))
+    )
+    probabilities_to_csv(results, clf.classes, csv_path)
+
+
+def _read_images(img_paths):
+    """``(0, roi id, gray uint8)`` per readable PNG: the ROI id is the last
+    ``_`` field of the stem; colour is reduced as ``cv2.cvtColor(BGR2GRAY)``
+    reduces it (``sykepic_tpu/compute/probability.py:346-361``), with the
+    same warning when it was not gray."""
+    for path in img_paths:
+        path = Path(path)
+        roi_id = int(path.stem.split("_")[-1])
+        try:
+            img = png.decode_png_channels(path.read_bytes(), path)
+        except (OSError, ValueError):
+            log.warning(f"Cannot read image {path}")
+            continue
+        if img.shape[2] > 1:
+            # IFCB images are grayscale; color PNGs are reduced to luma.
+            # cv2 hands JAX B, G, R: it compares B with G
+            if not (img[..., 2] == img[..., 1]).all():
+                log.warning(f"{path.name} is not grayscale; using luminance")
+        yield 0, roi_id, png.to_gray(img, "cvtcolor")
 
 
 def probabilities_to_csv(probabilities, classes, csv_path) -> None:

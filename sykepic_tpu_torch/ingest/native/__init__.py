@@ -4,11 +4,21 @@
 pure-NumPy fallback, so the framework works without a compiler; the native
 path is a host-throughput optimization. The shared object is built on first
 use with the bundled Makefile (``g++`` is assumed present on build hosts).
+
+Several processes may call ``lib()`` at once on one tree (test workers,
+the ranks of a multi-process run). The check, the build and the load run
+under an exclusive ``flock`` on ``.buildlock`` in this directory; the build
+compiles to a per-pid name, writes ``.buildhost`` and publishes the library
+with ``os.replace``, so no process ever sees a half-written ``.so`` or
+loads one built for another host.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
+import os
 import subprocess
 from pathlib import Path
 
@@ -16,7 +26,9 @@ import numpy as np
 
 _HERE = Path(__file__).resolve().parent
 _SO = _HERE / "libifcb_native.so"
+_SRC = _HERE / "ifcb_native.cpp"
 _FP = _HERE / ".buildhost"  # CPU fingerprint the .so was compiled for
+_LOCK = _HERE / ".buildlock"
 _lib = None
 _tried = False
 
@@ -51,52 +63,74 @@ def _host_fingerprint() -> str:
     return hashlib.sha256(f"{model}|{flags}".encode()).hexdigest()[:16]
 
 
+def _fresh(fp: str) -> bool:
+    """Whether the .so exists, was built for this host (``.buildhost``)
+    and is not older than its source (an older one lacks the source's newer
+    symbols)."""
+    try:
+        return (_FP.read_text().strip() == fp
+                and _SO.stat().st_mtime >= _SRC.stat().st_mtime)
+    except OSError:
+        return False
+
+
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive ``flock`` on ``.buildlock``; yields False (no lock)
+    where the directory is read-only, where nothing can be built anyway."""
+    try:
+        fd = os.open(_LOCK, os.O_RDWR | os.O_CREAT, 0o644)
+    except OSError:
+        yield False
+        return
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield True
+    finally:
+        os.close(fd)  # releases the lock
+
+
+def _build(fp: str) -> bool:
+    """Compile to a per-pid name (-march=native, then portable), record
+    the host, publish with ``os.replace``. Call under :func:`_build_lock`."""
+    tmp = _HERE / f"libifcb_native.{os.getpid()}.tmp.so"
+    try:
+        for extra in ((), ("PORTABLE=1",)):
+            try:
+                subprocess.run(
+                    ["make", "-s", f"OUT={tmp.name}", *extra, tmp.name], cwd=_HERE,
+                    check=True, capture_output=True, timeout=120,
+                )
+                break
+            except Exception:
+                continue
+        else:
+            return False
+        _FP.write_text(fp + "\n")
+        os.replace(tmp, _SO)
+        return True
+    except OSError:
+        return False
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
 def lib():
-    """Load (building if necessary) the native library; None on failure."""
+    """Load (building if necessary) the native library; None on failure.
+    A library that is stale (another host's, or older than its source) is
+    never loaded: it is rebuilt, or None is returned."""
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
     _tried = True
     fp = _host_fingerprint()
-    if _SO.is_file():
+    with _build_lock() as locked:
+        if not _fresh(fp) and not (locked and _build(fp)):
+            return None
         try:
-            recorded = _FP.read_text().strip()
-            # a .so older than its source lacks the source's newer symbols
-            if _SO.stat().st_mtime < (_HERE / "ifcb_native.cpp").stat().st_mtime:
-                recorded = ""
+            handle = ctypes.CDLL(str(_SO))
         except OSError:
-            recorded = ""
-        if recorded != fp:
-            try:
-                _SO.unlink(missing_ok=True)  # built on a different host
-            except OSError:
-                # read-only tree / permission problem: running the stale
-                # cross-host .so risks an uncatchable SIGILL, so honor the
-                # documented "None on failure" contract instead
-                return None
-    if not _SO.is_file():
-        try:
-            subprocess.run(
-                ["make", "-s"], cwd=_HERE, check=True, capture_output=True,
-                timeout=120,
-            )
-        except Exception:
-            # -march=native can fail on exotic toolchains; retry portable
-            try:
-                subprocess.run(
-                    ["make", "-s", "PORTABLE=1"], cwd=_HERE, check=True,
-                    capture_output=True, timeout=120,
-                )
-            except Exception:
-                return None
-        try:
-            _FP.write_text(fp + "\n")
-        except OSError:
-            pass
-    try:
-        handle = ctypes.CDLL(str(_SO))
-    except OSError:
-        return None
+            return None
 
     handle.adc_count_rows.restype = ctypes.c_longlong
     handle.adc_count_rows.argtypes = [ctypes.c_char_p, ctypes.c_longlong]

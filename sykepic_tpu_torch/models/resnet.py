@@ -16,6 +16,11 @@ with ``strict=True`` once its ``base.N`` prefixes are renamed
 - Dropout and row-mode stochastic depth in training draw their masks from
   the ``generator`` their owner sets (:class:`Dropout`,
   :class:`StochasticDepth`), so a seeded training run repeats.
+- Data parallel training (``sykepic_tpu_torch.parallel``): the trainer
+  sets each :class:`BatchNorm2d`'s ``process_group``, so the batch
+  statistics are those of the global batch, and each mask draw's
+  ``rows``, so every rank draws the global batch's masks and keeps its own
+  rows: N ranks then normalise and drop out as one device does.
 - Max-pool 3x3 / 2 with padding 1; global average pool.
 - The head is literally stacked ``Linear`` layers with no activations in
   between, with Dropout layers spliced in by index using Python
@@ -28,6 +33,7 @@ from functools import partial
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 
@@ -48,16 +54,53 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``F.batch_norm`` call that normalises (into zeroed buffers at momentum
     1, which hold the batch mean and the unbiased variance), so no extra
     pass over the activations is made. Evaluation is ``nn.BatchNorm2d``'s,
-    with ``eps``."""
+    with ``eps``.
+
+    With a ``process_group`` of more than one rank (set by the trainer: its
+    mesh's ``data`` group) training takes the statistics of the global
+    batch, as GSPMD gives the JAX package: the count and the per-channel sum
+    are all-reduced for the mean, then the squared deviations from it for
+    the biased variance, so ranks with unequal (even zero) row counts weigh
+    right; both reductions are differentiable (:func:`~sykepic_tpu_torch.
+    parallel.all_reduce_sum`), and the arithmetic is float32 whatever the
+    autocast type. A group of one rank takes the path above, as
+    ``torch.nn.SyncBatchNorm`` does: its local batch is the global one."""
+
+    process_group = None
 
     def __init__(self, num_features: int, momentum: float = 0.9,
                  eps: float = 1e-5):
         super().__init__(num_features, eps=eps, momentum=1.0 - momentum)
         self.flax_momentum = momentum
 
+    def _global_forward(self, x):
+        from ..parallel import all_reduce_sum
+
+        c = x.shape[1]
+        xf = x.float()
+        count = torch.full((1,), float(x.numel() // max(c, 1)),
+                           device=x.device)
+        tot = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)), count]),
+                             self.process_group)
+        n = tot[c]
+        mean = tot[:c] / n
+        d = xf - mean.view(1, c, 1, 1)
+        var = all_reduce_sum((d * d).sum(dim=(0, 2, 3)),
+                             self.process_group) / n
+        y = (d * torch.rsqrt(var + self.eps).view(1, c, 1, 1)
+             * self.weight.view(1, c, 1, 1) + self.bias.view(1, c, 1, 1))
+        m = self.flax_momentum
+        with torch.no_grad():
+            self.running_mean.mul_(m).add_((1.0 - m) * mean)
+            self.running_var.mul_(m).add_((1.0 - m) * var)
+        return y.to(x.dtype)
+
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if (self.process_group is not None
+                and dist.get_world_size(self.process_group) > 1):
+            return self._global_forward(x)
         mean = torch.zeros_like(self.running_mean)
         var_unbiased = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, mean, var_unbiased, self.weight, self.bias,
@@ -71,19 +114,34 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
+def _draw_rows(module, shape, device):
+    """Uniform draws of ``shape`` from ``module.generator``; with
+    ``module.rows = (lo, hi, total)`` (set by a data-parallel trainer) the
+    draws of the whole ``total``-row batch, of which rows ``[lo, hi)`` are
+    this rank's (``shape[0] == hi - lo``), so every rank advances the
+    generator alike and N ranks draw what one device draws."""
+    rows = module.rows
+    if rows is None:
+        return torch.rand(shape, generator=module.generator, device=device)
+    lo, hi, total = rows
+    u = torch.rand((total,) + tuple(shape[1:]), generator=module.generator,
+                   device=device)
+    return u[lo:hi]
+
+
 class Dropout(nn.Dropout):
     """``nn.Dropout`` that draws its training mask from ``self.generator``
     (set by the trainer) instead of the global generator: keep with
     probability ``1 - p``, scale the kept values by ``1 / (1 - p)``, as
-    Flax's ``Dropout``."""
+    Flax's ``Dropout``. ``rows``: see :func:`_draw_rows`."""
 
     generator: torch.Generator | None = None
+    rows: tuple | None = None
 
     def forward(self, x):
         if not self.training or self.p == 0.0 or self.generator is None:
             return super().forward(x)
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) >= self.p
+        keep = _draw_rows(self, x.shape, x.device) >= self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 
@@ -93,9 +151,10 @@ class StochasticDepth(nn.Module):
     branch survives with probability ``1 - p`` and survivors are scaled by
     ``1 / (1 - p)``; the draw comes from ``self.generator`` (set by the
     trainer, the global generator without one). The identity in
-    evaluation and at ``p = 0``."""
+    evaluation and at ``p = 0``. ``rows``: see :func:`_draw_rows`."""
 
     generator: torch.Generator | None = None
+    rows: tuple | None = None
 
     def __init__(self, p: float):
         super().__init__()
@@ -105,8 +164,7 @@ class StochasticDepth(nn.Module):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
-                       generator=self.generator, device=x.device)
+        u = _draw_rows(self, (x.shape[0],) + (1,) * (x.dim() - 1), x.device)
         return x * ((u < keep).to(x.dtype) / keep)
 
 

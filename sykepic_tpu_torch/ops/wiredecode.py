@@ -75,6 +75,13 @@ def decode(payload: wirecodec.WirePayload, device) -> torch.Tensor:
         # so the caller may recycle the payload; the host does not wait
         return torch.from_numpy(a).to(device, non_blocking=True)
 
-    d = unpack_plane(put(payload.plane))
-    d, _ = scatter_chunk(d, put(payload.exc), -1)
-    return finalize(d, put(payload.flags))
+    return decode_tensors(put(payload.plane), put(payload.exc),
+                          put(payload.flags))
+
+
+def decode_tensors(plane: torch.Tensor, exc: torch.Tensor,
+                   flags: torch.Tensor) -> torch.Tensor:
+    """A payload's three arrays, already on the device, -> uint8 windows."""
+    d = unpack_plane(plane)
+    d, _ = scatter_chunk(d, exc, -1)
+    return finalize(d, flags)

@@ -18,6 +18,14 @@ Keeps the contracts of the JAX package:
 The device is ``cuda`` unless ``--device cpu`` is asked for. The side modes
 ``--save-images``, ``--dist`` and ``--collage`` are not ported yet (ROADMAP
 Queue 1 item 12) and raise ``NotImplementedError``.
+
+Under a process group (torchrun, or the spawn of ``train`` on a host with
+several cards; :mod:`sykepic_tpu_torch.parallel`) every rank runs
+:func:`main` on its own card: the same seed gives every rank the same split
+and batch plans, the trainer splits each batch over the data mesh, and rank
+0 alone writes the model directory, checkpoints, plots and reports and
+prints. Every rank takes part in the collectives of a checkpoint
+(``trainer.variables`` gathers sharded weights).
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
+from .. import parallel
 from ..analyze import plot
 from ..analyze.report import classification_report
 from ..models import checkpoint, registry
@@ -42,6 +51,35 @@ from .trainer import LRSchedule, Trainer
 log = logger.get_logger("train")
 
 TRAIN_STATE = "train_state.pt"
+
+
+def _say(*args, **kwargs) -> None:
+    """``print`` on rank 0 (every process without a group)."""
+    if parallel.rank() == 0:
+        print(*args, **kwargs)
+
+
+def _from_rank0(obj):
+    """Rank 0's ``obj`` on every rank (``obj`` itself without a group)."""
+    if not parallel.is_initialized():
+        return obj
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def rank_main(device, options: dict) -> None:
+    """One rank of ``train``'s spawn over a host's cards (``python -m
+    sykepic_tpu_torch train``): :func:`main` on ``device`` with the CLI's
+    ``options`` (its parsed arguments as a dict). It lives here, and takes
+    no function of ``__main__.py``: a spawned process cannot unpickle
+    anything of a package's ``__main__`` module, which multiprocessing does
+    not import again."""
+    import argparse
+
+    main(argparse.Namespace(**{**options, "device": str(device)}))
 
 
 def main(args):
@@ -104,13 +142,16 @@ def main(args):
     if model_id:
         model_name += f"_{model_id}"
     model_dir = model_dir / model_name
-    model_dir.mkdir(
-        parents=True,
-        exist_ok=config.getboolean("model", "exist_ok")
-        or (resume_requested and model_dir.is_dir()),
-    )
-    model_data.save(model_dir)
-    shutil.copy(args.config, model_dir / "config.ini")
+    if parallel.rank() == 0:
+        model_dir.mkdir(
+            parents=True,
+            exist_ok=config.getboolean("model", "exist_ok")
+            or (resume_requested and model_dir.is_dir()),
+        )
+        model_data.save(model_dir)
+        shutil.copy(args.config, model_dir / "config.ini")
+    # the directory rank 0 chose and made (an auto id counts the dirs)
+    model_dir = _from_rank0(model_dir)
 
     # [train]
     max_epochs = config.getint("train", "max_epochs")
@@ -158,6 +199,10 @@ def main(args):
         device=device,
         dtype=dtype_name,
     )
+    if trainer.mesh is not None:
+        _say("[INFO] Mesh: " + ", ".join(
+            f"{name}={size}" for name, size in
+            zip(trainer.mesh.mesh_dim_names, trainer.mesh.shape)))
 
     start_epoch = 1
     resume_metrics = None
@@ -167,10 +212,10 @@ def main(args):
             start_epoch = int(resumed["epoch"]) + 1
             schedule.restore(resumed.get("schedule"))
             resume_metrics = resumed.get("metrics")
-            print(f"[INFO] Resuming training from epoch {start_epoch}")
+            _say(f"[INFO] Resuming training from epoch {start_epoch}")
         else:
-            print(f"[WARNING] resume requested but no {TRAIN_STATE} "
-                  f"in {model_dir}; starting fresh")
+            _say(f"[WARNING] resume requested but no {TRAIN_STATE} "
+                 f"in {model_dir}; starting fresh")
 
     train_x, train_y = model_data.train_set()
     shrink = (spec.target_h, spec.target_w)
@@ -192,8 +237,11 @@ def main(args):
     if use_cache:
         from .device_data import DeviceDataset
 
+        # one whole store per card; batch sizes stay multiples of the data
+        # axis, as the JAX package keeps them divisible by it
         cache_kw = dict(device=trainer.device,
-                        num_threads=max(num_workers, 1))
+                        num_threads=max(num_workers, 1),
+                        batch_multiple=parallel.data_axis_size(trainer.mesh))
         train_loader = DeviceDataset(
             train_x, train_y, spec, batch_size, seed=random_seed,
             shuffle=True, **cache_kw,
@@ -201,9 +249,9 @@ def main(args):
         val_loader = DeviceDataset(
             model_data.val_x, model_data.val_y, spec, batch_size, **cache_kw
         )
-        print(f"[INFO] Device-resident dataset: "
-              f"{(train_loader.nbytes + val_loader.nbytes) / 1e6:.0f} MB "
-              "uploaded once; epochs gather on device")
+        _say(f"[INFO] Device-resident dataset: "
+             f"{(train_loader.nbytes + val_loader.nbytes) / 1e6:.0f} MB "
+             "uploaded once; epochs gather on device")
     else:
         # `[image] size_pool` (default 16): class-stratified size batching
         # granularity; 1 = reference-faithful plain global shuffle
@@ -239,20 +287,25 @@ def main(args):
             num_threads=max(num_workers, 1), pre_shrink_to=shrink,
         )
         report = test_net(trainer, test_loader, classes)
-        print(report)
-        (model_dir / "test_report.txt").write_text(report)
+        _say(report)
+        if parallel.rank() == 0:
+            (model_dir / "test_report.txt").write_text(report)
     if external_test:
         x, y = data.external_eval_set(external_test, model_data)
         loader = BatchLoader(x, y, batch_size, num_threads=max(num_workers, 1))
         test_name = Path(external_test).name
         report = test_net(trainer, loader, classes, test_name=test_name)
-        print(report)
-        (model_dir / f"test_report_{test_name}.txt").write_text(report)
+        _say(report)
+        if parallel.rank() == 0:
+            (model_dir / f"test_report_{test_name}.txt").write_text(report)
     return model_dir
 
 
 def _progress(iterable):
-    """``tqdm`` around ``iterable`` when it imports (it is optional)."""
+    """``tqdm`` around ``iterable`` when it imports (it is optional), on
+    rank 0."""
+    if parallel.rank() != 0:
+        return iterable
     try:
         from tqdm import tqdm
     except ImportError:
@@ -274,10 +327,11 @@ def train_net(
     resume_metrics: dict | None = None,
 ):
     """Epoch loop (reference ``train.py:201-320``). Returns the best
-    checkpoint path."""
+    checkpoint path, written (by rank 0) before any rank returns."""
     model_dir = Path(model_dir)
-    plots = plot.available()
-    if not plots:
+    main_rank = parallel.rank() == 0
+    plots = plot.available() and main_rank
+    if not plots and main_rank:
         log.info("matplotlib does not import: the training-curve plots "
                  "(train_stats.png) are skipped")
     # On resume the best-checkpoint/early-stop bookkeeping continues where
@@ -293,7 +347,7 @@ def train_net(
 
     try:
         for epoch in range(start_epoch, max_epochs + 1):
-            print(f"\n----- Epoch {epoch} -----")
+            _say(f"\n----- Epoch {epoch} -----")
             schedule.start_epoch(epoch)
 
             # Training phase. Metrics stay device scalars until the epoch
@@ -319,7 +373,7 @@ def train_net(
             train_loss = float(loss_sum) / float(n_sum)
             train_accuracies.append(train_acc)
             train_losses.append(train_loss)
-            print(f"[STAT] Train Acc: {train_acc:.3f}, Train Loss: {train_loss:.3f}")
+            _say(f"[STAT] Train Acc: {train_acc:.3f}, Train Loss: {train_loss:.3f}")
 
             # Validation phase
             loss_sum = acc_sum = n_sum = 0.0
@@ -332,7 +386,7 @@ def train_net(
             val_loss = float(loss_sum) / float(n_sum)
             val_accuracies.append(val_acc)
             val_losses.append(val_loss)
-            print(f"[STAT] Val Acc: {val_acc:.3f}, Val Loss: {val_loss:.3f}")
+            _say(f"[STAT] Val Acc: {val_acc:.3f}, Val Loss: {val_loss:.3f}")
 
             # Checkpoint + plots (reference train.py:277-300)
             if plots:
@@ -349,9 +403,11 @@ def train_net(
                         first_epoch=11, epoch_step=2,
                     )
             if val_acc > max_val_acc:
-                print("[INFO] Increased accuracy, saving model state")
+                _say("[INFO] Increased accuracy, saving model state")
                 max_val_acc = val_acc
-                checkpoint.save_variables(best_state, trainer.variables)
+                variables = trainer.variables  # every rank: a collective
+                if main_rank:
+                    checkpoint.save_variables(best_state, variables)
 
             if val_loss < min_val_loss or (epoch == start_epoch
                                            and not resume_metrics):
@@ -359,7 +415,7 @@ def train_net(
                 min_val_loss = val_loss
             else:
                 no_improvement += 1
-                print(f"[INFO] No reduction in loss for {no_improvement} epochs")
+                _say(f"[INFO] No reduction in loss for {no_improvement} epochs")
             early_stop = no_improvement >= early_stop_patience
             if not early_stop:
                 schedule.end_epoch(epoch, val_loss)
@@ -373,13 +429,17 @@ def train_net(
                 schedule=schedule,
             )
             if early_stop:
-                print("[INFO] Stopping early")
+                _say("[INFO] Stopping early")
                 break
     except KeyboardInterrupt:
-        print("[INFO] Stopping early")
+        _say("[INFO] Stopping early")
+    parallel.barrier()  # rank 0's writes are done: every rank sees them
     if not best_state.is_file():
         # No epoch improved: save the current state
-        checkpoint.save_variables(best_state, trainer.variables)
+        variables = trainer.variables
+        if main_rank:
+            checkpoint.save_variables(best_state, variables)
+        parallel.barrier()
     return best_state
 
 
@@ -388,9 +448,9 @@ def test_net(trainer: Trainer, loader, classes, test_name=None) -> str:
     ``train.py:323-349``), in scikit-learn's layout
     (:func:`~sykepic_tpu_torch.analyze.report.classification_report`)."""
     if test_name:
-        print(f"\n----- Model Evaluation ({test_name}) -----")
+        _say(f"\n----- Model Evaluation ({test_name}) -----")
     else:
-        print("\n----- Model Evaluation -----")
+        _say("\n----- Model Evaluation -----")
     true_labels: list[int] = []
     predicted_labels: list[int] = []
     acc_sum = n_sum = 0.0
@@ -401,7 +461,7 @@ def test_net(trainer: Trainer, loader, classes, test_name=None) -> str:
         real = batch.weights > 0
         true_labels.extend(np.asarray(batch.labels)[real].tolist())
         predicted_labels.extend(preds.cpu().numpy()[real].tolist())
-    print(f"[STAT] Test Accuracy: {acc_sum / n_sum:.3f}\n")
+    _say(f"[STAT] Test Accuracy: {acc_sum / n_sum:.3f}\n")
     return classification_report(true_labels, predicted_labels, classes)
 
 
@@ -413,7 +473,7 @@ def load_train_state(model_dir, trainer: Trainer):
     if not path.is_file():
         return None
     state = torch.load(path, map_location="cpu", weights_only=True)
-    trainer.model.load_state_dict(state["model"], strict=True)
+    trainer.load_state_dict(state["model"])
     trainer.load_optimizer_state(state["opt_state"])
     return state
 
@@ -422,15 +482,18 @@ def save_train_state(model_dir, trainer: Trainer, epoch: int,
                      metrics: dict, schedule: LRSchedule) -> None:
     """Persist model + optimizer state + training bookkeeping for resume,
     as plain tensors and dicts (``torch.load(..., weights_only=True)``
-    reads it)."""
+    reads it). Every rank calls it (the state is gathered); rank 0
+    writes."""
     state = {
         "model": {k: v.detach().cpu()
-                  for k, v in trainer.model.state_dict().items()},
+                  for k, v in trainer.state_dict().items()},
         "opt_state": trainer.optimizer_state(),
         "epoch": int(epoch),
         "metrics": {k: float(v) for k, v in metrics.items()},
         "schedule": schedule.snapshot(),
     }
+    if parallel.rank() != 0:
+        return
     path = Path(model_dir) / TRAIN_STATE
     tmp = path.with_suffix(".tmp")
     torch.save(state, tmp)

@@ -29,6 +29,30 @@ the update is the optax transform written out (:func:`make_optimizer`).
 Augmentation draws and dropout masks come from the trainer's own
 ``torch.Generator``, in batch order, so a seeded run repeats and the
 per-step loop equals the whole-epoch call.
+
+Data parallelism (``mesh=``, or by default every rank of an initialised
+process group; :mod:`sykepic_tpu_torch.parallel`): every rank holds the
+whole batch plan, the stores and the parameters, and computes one step of
+the global batch as one device does:
+
+- rows: data rank ``d`` takes the contiguous rows of ``shard_rows`` of
+  the concatenated batch (any total, a rank may take none), and runs K1
+  and the network on those alone;
+- draws: every rank draws the augmentation parameters and dropout masks of
+  the whole global batch from the same generator state and keeps its rows;
+- loss: ``sum(loss * w) / max(sum(w), 1)`` over the global batch, each
+  rank's numerator over the global weight sum (every rank holds the
+  batch's weights, so the sum needs no collective); the gradients are then
+  summed over the ``data`` group, one all-reduce of one flat buffer (not
+  DDP's mean: ranks hold unequal weight sums);
+- BatchNorm takes the global batch's statistics (``BatchNorm2d``'s
+  ``process_group``);
+- the reported sums are all-reduced and eval predictions gathered, so every
+  rank returns the global numbers; the optimizer runs replicated.
+
+With a ``model`` axis the wide kernels are sharded first
+(``shard_wide_kernels``); checkpoints and the optimizer state are gathered
+whole (:meth:`Trainer.state_dict`, :meth:`Trainer.optimizer_state`).
 """
 
 from __future__ import annotations
@@ -37,11 +61,13 @@ import re
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.nn import functional as F
 
 from .. import device as device_mod
+from .. import parallel
 from ..models import checkpoint
-from ..models.resnet import Dropout, StochasticDepth
+from ..models.resnet import BatchNorm2d, Dropout, StochasticDepth
 from ..ops import augment as augment_ops
 from ..ops import preprocess, resize_pad
 
@@ -188,12 +214,15 @@ class Trainer:
     ``model`` is a model of :mod:`sykepic_tpu_torch.models.registry`
     holding its weights; it moves to ``device`` (``cuda`` unless ``cpu`` is
     asked for; ``cuda`` without a card raises) in channels_last. ``dtype``
-    is the compute dtype ("float32" or "bfloat16").
+    is the compute dtype ("float32" or "bfloat16"). ``mesh``: a mesh of
+    :mod:`sykepic_tpu_torch.parallel` over ranks whose devices are like
+    ``device``; by default every rank of an initialised process group,
+    else none (one device).
     """
 
     def __init__(self, model, optimizer: str = "Adam", preprocess_spec=None,
                  augment_kwargs: dict | None = None, seed: int = 0,
-                 device=None, dtype: str = "float32"):
+                 device=None, dtype: str = "float32", mesh=None):
         self.device = device_mod.resolve(device)
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
@@ -203,13 +232,30 @@ class Trainer:
             # cuDNN convolutions default to TF32 (about three digits)
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
+        if mesh is None and parallel.is_initialized():
+            mesh = parallel.data_mesh()
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot train on "
+                             f"{self.device}")
+        self.mesh = mesh
+        self.data_group = parallel.axis_group(mesh, "data")
+        self.n_data = parallel.data_axis_size(mesh)
+        self.data_index = parallel.axis_index(mesh, "data")
         self.model = model.to(self.device, memory_format=torch.channels_last)
         self.spec = preprocess_spec
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._drawers = []
         for m in self.model.modules():
             if isinstance(m, (Dropout, StochasticDepth)):
                 m.generator = self.gen
+                self._drawers.append(m)
+            elif isinstance(m, BatchNorm2d):
+                m.process_group = self.data_group
         groups = param_groups(self.model)
+        if parallel.has_model_axis(mesh):
+            # names are unchanged by the sharding: the groups carry over
+            parallel.shard_wide_kernels(self.model, mesh)
+        self._shards = parallel.sharded_names(self.model)
         self.names = [n for n, _ in self.model.named_parameters()]
         self.params = [p for _, p in self.model.named_parameters()]
         self.labels = [groups[n] for n in self.names]
@@ -230,10 +276,19 @@ class Trainer:
             t = t.to(dtype)
         return t.to(self.device, non_blocking=True)
 
+    def _rows(self, total: int) -> tuple[int, int, int]:
+        """``(lo, hi, total)``: this rank's rows of a ``total``-row batch."""
+        lo, hi = parallel.shard_rows(total, self.n_data, self.data_index)
+        return lo, hi, total
+
     def _preprocess(self, parts, train: bool):
         """K1 over ``parts``, a list of ``(store, idx)`` (``idx`` a device
-        int64 row vector), one launch per part into one NHWC batch; returns
-        ``(x, y)``. Train steps take K1's train form: the augmentation
+        int64 row vector), one launch per part into one NHWC batch of this
+        rank's rows (all rows without a mesh; a part without rows of this
+        rank launches nothing); returns ``(x, y, rows)`` with ``rows`` of
+        :meth:`_rows`. The augmentation draws are those of every part's
+        whole row vector, whatever rows this rank keeps. Train steps take
+        K1's train form: the augmentation
         affines and brightness (when ``augment_kwargs`` is set; brightness
         alone off still floors, as the JAX step's ``apply_brightness`` with
         factors of 1 does) and the ImageNet normalisation (when the spec
@@ -245,19 +300,21 @@ class Trainer:
         transform)."""
         spec = self.spec
         t_h, t_w, c = spec.target_h, spec.target_w, spec.num_chans
-        total = sum(int(idx.numel()) for _, idx in parts)
-        x = torch.empty((total, t_h, t_w, c), dtype=self.dtype,
+        rows = self._rows(sum(int(idx.numel()) for _, idx in parts))
+        lo, hi, _ = rows
+        x = torch.empty((hi - lo, t_h, t_w, c), dtype=self.dtype,
                         device=self.device)
         ys = []
         kw = self.augment_kwargs if train else {}
         norm = train and self.mean is not None
         mean = self.mean if norm else None
         std = self.std if norm else None
-        pos = 0
+        pos = off = 0
         for store, idx in parts:
             n = int(idx.numel())
-            meta = store["meta"].index_select(1, idx)
-            out = x[pos:pos + n]
+            # this rank's rows [a, b) of the part
+            a, b = max(lo - pos, 0), min(hi - pos, n)
+            pos += n
             draws = None
             if kw:
                 lim = store["lim"].index_select(1, idx)
@@ -271,6 +328,15 @@ class Trainer:
                     zoom_range=kw.get("zoom_range", (1.0, 1.0)),
                     brightness_range=kw.get("brightness_range", (1.0, 1.0)),
                     max_rotation=kw.get("max_rotation", 0))
+            if a >= b:
+                continue
+            if draws is not None:
+                draws = augment_ops.Draws(*(None if t is None else t[a:b]
+                                            for t in draws))
+            idx = idx[a:b]
+            meta = store["meta"].index_select(1, idx)
+            out = x[off:off + b - a]
+            off += b - a
             if kw.get("rotate"):
                 img = resize_pad.resize_pad(store["canvas"], meta, t_h, t_w,
                                             1, torch.float32, raw=True)
@@ -285,8 +351,9 @@ class Trainer:
                     bright=None if draws is None else draws.bright.contiguous(),
                     mean=mean, std=std, out=out)
             ys.append(store["labels"].index_select(0, idx))
-            pos += n
-        return x, torch.cat(ys)
+        y = (torch.cat(ys) if ys else
+             torch.zeros(0, dtype=torch.int64, device=self.device))
+        return x, y, rows
 
     def _host_store(self, batch):
         """A HostBatch as a one-off device store read at rows 0..B-1."""
@@ -299,13 +366,18 @@ class Trainer:
         return store, idx
 
     # ---------------------------------------------------------------- steps
-    def _core_update(self, x, y, wts, stage: int, lrs):
+    def _core_update(self, x, y, wts, stage: int, lrs, rows):
         """Forward, weighted loss, backward, stage mask and update on a
-        preprocessed NHWC batch ``x``; returns device ``(loss_sum,
-        correct, n)``. Parameters of groups above ``stage`` ask autograd for
-        no gradient and get a zero tensor, so their moments stay zero and
-        the one step count advances for all."""
+        preprocessed NHWC batch ``x`` of this rank's ``rows`` (of
+        :meth:`_rows`) of the global batch whose weights are ``wts``;
+        returns device ``(loss_sum, correct, n)`` of the global batch.
+        Parameters of groups above ``stage`` ask autograd for no gradient
+        and get a zero tensor, so their moments stay zero and the one step
+        count advances for all."""
         self.model.train()
+        lo, hi, _ = rows
+        for m in self._drawers:
+            m.rows = rows if self.mesh is not None else None
         opened = [lab <= stage for lab in self.labels]
         for p, o in zip(self.params, opened):
             p.requires_grad_(o)
@@ -314,10 +386,14 @@ class Trainer:
             logits = self.model(x.permute(0, 3, 1, 2))
         logits = logits.float()
         losses = F.cross_entropy(logits, y, reduction="none")
-        n = wts.sum()
-        loss = (losses * wts).sum() / torch.clamp(n, min=1.0)
+        n = wts.sum()  # the global batch's: every rank holds its weights
+        w = wts[lo:hi]
+        loss = (losses * w).sum() / torch.clamp(n, min=1.0)
         live = [p for p, o in zip(self.params, opened) if o]
-        got = iter(torch.autograd.grad(loss, live))
+        got = list(torch.autograd.grad(loss, live))
+        if self.mesh is not None:
+            self._sum_over_data(got)
+        got = iter(got)
         grads = [next(got) if o else torch.zeros_like(p)
                  for p, o in zip(self.params, opened)]
         self.grads = grads  # the last step's masked gradients, by self.names
@@ -331,11 +407,27 @@ class Trainer:
                                         [updates[i] for i in sel],
                                         alpha=-lr)
             preds = logits.argmax(dim=-1)
-            correct = ((preds == y).to(torch.float32) * wts).sum()
-            loss_sum = (losses.detach() * wts).sum()
+            correct = ((preds == y).to(torch.float32) * w).sum()
+            loss_sum = (losses.detach() * w).sum()
+            if self.mesh is not None:
+                loss_sum, correct = self._sum_over_data(
+                    [torch.stack([loss_sum, correct])])[0]
         for p in self.params:
             p.requires_grad_(True)
         return loss_sum, correct, n
+
+    def _sum_over_data(self, tensors: list) -> list:
+        """Sum ``tensors`` over the mesh's ``data`` group in place, as one
+        all-reduce of one flat buffer; returns them."""
+        if not tensors:
+            return tensors
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat, group=self.data_group)
+        pos = 0
+        for t in tensors:
+            t.copy_(flat[pos:pos + t.numel()].view(t.shape))
+            pos += t.numel()
+        return tensors
 
     def train_batch(self, batch, stage: int, lrs):
         """One optimization step. Returns ``(loss_sum, correct, n)`` as
@@ -359,8 +451,8 @@ class Trainer:
                           stage, lrs)
 
     def _step(self, parts, wts, stage, lrs):
-        x, y = self._preprocess(parts, train=True)
-        return self._core_update(x, y, wts, stage, lrs)
+        x, y, rows = self._preprocess(parts, train=True)
+        return self._core_update(x, y, wts, stage, lrs, rows)
 
     def train_batch_gathered(self, store, idx, weights, stage: int, lrs):
         """One step over rows ``idx`` of a device-resident store (see
@@ -404,17 +496,24 @@ class Trainer:
 
     @torch.no_grad()
     def _eval(self, parts, wts):
+        """``(loss_sum, correct, n, preds)`` of the global batch: each rank
+        evaluates its rows, the sums are all-reduced and the predictions
+        gathered over the ``data`` group (a batch need not divide it)."""
         self.model.eval()
-        x, y = self._preprocess(parts, train=False)
+        x, y, (lo, hi, total) = self._preprocess(parts, train=False)
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
             logits = self.model(x.permute(0, 3, 1, 2))
         logits = logits.float()
         losses = F.cross_entropy(logits, y, reduction="none")
         preds = logits.argmax(dim=-1)
-        return ((losses * wts).sum(),
-                ((preds == y).to(torch.float32) * wts).sum(), wts.sum(),
-                preds)
+        w = wts[lo:hi]
+        sums = [(losses * w).sum(), ((preds == y).to(torch.float32) * w).sum()]
+        if self.mesh is not None:
+            sums = self._sum_over_data([torch.stack(sums)])[0]
+            preds = parallel.gather_rows(preds, total, self.data_group,
+                                         self.n_data)
+        return sums[0], sums[1], wts.sum(), preds
 
     def eval_batch_gathered(self, store, idx, weights):
         """Gathered counterpart of :meth:`eval_batch`."""
@@ -448,23 +547,44 @@ class Trainer:
                                                      torch.float32))
 
     # ---------------------------------------------------------------- state
+    def state_dict(self) -> dict:
+        """The model's whole ``state_dict``: sharded weights gathered (a
+        collective under a ``model`` axis; every rank calls it)."""
+        if self._shards:
+            return parallel.gather_state_dict(self.model)
+        return self.model.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        """Load a whole ``state_dict`` (this rank keeps its slices)."""
+        if self._shards:
+            state = parallel.local_state_dict(self.model, state)
+        self.model.load_state_dict(state, strict=True)
+
     @property
     def variables(self) -> dict:
         """The model's ``{"params", "batch_stats"}`` in the JAX package's
-        layout (numpy, on the host)."""
+        layout (numpy, on the host; gathered whole under a ``model``
+        axis, so every rank reads it together)."""
         return checkpoint.to_flax_variables(
-            self.model.state_dict(), getattr(self.model, "network", None))
+            self.state_dict(), getattr(self.model, "network", None))
 
     def set_variables(self, variables) -> None:
         """Load a ``{"params", "batch_stats"}`` tree into the model."""
-        self.model.load_state_dict(checkpoint.from_flax_variables(
+        self.load_state_dict(checkpoint.from_flax_variables(
             variables, self.model.head.dropout_spec(),
-            getattr(self.model, "network", None)), strict=True)
+            getattr(self.model, "network", None)))
 
     def optimizer_state(self) -> dict:
         """The optimizer state as plain CPU tensors and ints (for
-        ``train_state.pt``)."""
-        return {k: v if isinstance(v, int) else [t.detach().cpu() for t in v]
+        ``train_state.pt``), the moments of sharded weights gathered."""
+        def whole(i, t):
+            shard = self._shards.get(self.names[i])
+            t = t.detach() if shard is None else parallel.full_tensor(
+                shard, t.detach())
+            return t.cpu()
+
+        return {k: v if isinstance(v, int)
+                else [whole(i, t) for i, t in enumerate(v)]
                 for k, v in self.opt_state.items()}
 
     def load_optimizer_state(self, state: dict) -> None:
@@ -479,7 +599,10 @@ class Trainer:
             if len(v) != len(new[k]):
                 raise ValueError(f"optimizer state '{k}' has {len(v)} "
                                  f"tensors for {len(new[k])} parameters")
-            for dst, src in zip(new[k], v):
+            for name, dst, src in zip(self.names, new[k], v):
+                shard = self._shards.get(name)
+                if shard is not None:
+                    src = src[shard.lo:shard.lo + shard.per]
                 dst.copy_(src)
         self.opt_state = new
 

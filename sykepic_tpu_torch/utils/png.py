@@ -11,10 +11,20 @@ does not depend on ``cv2``, so it reads PNGs itself:
   vectorised and Average and Paeth rows run a per-byte Python loop, since
   each byte needs its reconstructed left neighbour. libpng picks filters
   adaptively, so PNGs written by cv2 carry all five.
-- Colour goes to gray as ``cv2.imread(..., IMREAD_GRAYSCALE)`` does it: libpng's
-  ``png_set_rgb_to_gray(0.299, 0.587)`` with its integer weights 9797, 19234
-  and 3737 (over 2**15) and truncation; alpha is dropped. IFCB PNGs are gray
-  copied into three channels, which every weighting returns unchanged.
+- Colour goes to gray in one of two ways, since the JAX package reads
+  colour PNGs twice over:
+
+  - ``gray="imread"`` (the default, training's): as ``cv2.imread(...,
+    IMREAD_GRAYSCALE)`` does it, libpng's ``png_set_rgb_to_gray(0.299,
+    0.587)`` with its integer weights 9797, 19234 and 3737 (over 2**15)
+    and truncation;
+  - ``gray="cvtcolor"`` (``prob``'s image inputs, which read with
+    ``IMREAD_UNCHANGED`` and reduce with ``cv2.cvtColor(BGR2GRAY)``,
+    ``sykepic_tpu/compute/probability.py:346-361``): cv2's fixed-point luma
+    ``(3735 B + 19235 G + 9798 R + 16384) >> 15``, rounded.
+
+  Alpha is dropped either way. IFCB PNGs are gray copied into three
+  channels, which every weighting returns unchanged.
 - Anything else (16-bit, palette, gray with alpha, interlaced) raises
   ``ValueError`` naming the file.
 
@@ -34,8 +44,11 @@ import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> samples a pixel (8-bit)
-# libpng's png_set_rgb_to_gray(0.299, 0.587) in 1/32768 units
-_GRAY_WEIGHTS = (9797, 19234, 3737)
+# (R, G, B) weights in 1/32768 units and the rounding term, per gray mode:
+# libpng's png_set_rgb_to_gray(0.299, 0.587), truncated (cv2.imread's
+# IMREAD_GRAYSCALE); cv2.cvtColor(BGR2GRAY)'s fixed-point luma, rounded
+_GRAY_WEIGHTS = {"imread": ((9797, 19234, 3737), 0),
+                 "cvtcolor": ((9798, 19235, 3735), 1 << 14)}
 
 
 def png_dims(path):
@@ -120,8 +133,9 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int, path) -> np.ndarray:
     return out
 
 
-def decode_png(data: bytes, path="<bytes>") -> np.ndarray:
-    """PNG bytes -> 2-D uint8 grayscale (see the module docstring)."""
+def decode_png_channels(data: bytes, path="<bytes>") -> np.ndarray:
+    """PNG bytes -> ``(h, w, c)`` uint8 samples in the file's order (gray,
+    RGB or RGBA: ``c`` is 1, 3 or 4)."""
     if data[:8] != SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     ihdr, idat = None, []
@@ -143,18 +157,29 @@ def decode_png(data: bytes, path="<bytes>") -> np.ndarray:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise ValueError(f"{path}: corrupt PNG image data ({e})") from e
-    img = _unfilter(raw, h, w * bpp, bpp, path).reshape(h, w, bpp)
-    if bpp == 1:
+    return _unfilter(raw, h, w * bpp, bpp, path).reshape(h, w, bpp)
+
+
+def to_gray(img: np.ndarray, gray: str = "imread") -> np.ndarray:
+    """``(h, w, c)`` samples of :func:`decode_png_channels` -> 2-D uint8
+    gray by the ``gray`` mode of the module docstring."""
+    if img.shape[2] == 1:
         return img[:, :, 0]
+    (wr, wg, wb), half = _GRAY_WEIGHTS[gray]
     rgb = img[:, :, :3].astype(np.uint32)
-    wr, wg, wb = _GRAY_WEIGHTS
-    return ((rgb[..., 0] * wr + rgb[..., 1] * wg + rgb[..., 2] * wb)
+    return ((rgb[..., 0] * wr + rgb[..., 1] * wg + rgb[..., 2] * wb + half)
             >> 15).astype(np.uint8)
 
 
-def read_png(path) -> np.ndarray:
+def decode_png(data: bytes, path="<bytes>", gray: str = "imread"
+               ) -> np.ndarray:
+    """PNG bytes -> 2-D uint8 grayscale (see the module docstring)."""
+    return to_gray(decode_png_channels(data, path), gray)
+
+
+def read_png(path, gray: str = "imread") -> np.ndarray:
     """Decode one PNG file to 2-D uint8 grayscale."""
-    return decode_png(Path(path).read_bytes(), path)
+    return decode_png(Path(path).read_bytes(), path, gray)
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

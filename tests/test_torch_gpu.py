@@ -14,6 +14,11 @@ scale (``raw``) within 1e-3; K2 exact (bool masks, and the same step count
 per image), in each of its three forms. The other model families: the eval
 forward on the card (float32, TF32 off) against the CPU within ``rtol=1e-4,
 atol=1e-5`` of the logits; a train step with the rotation warp on the card.
+Multi-GPU at world size 1 (a NCCL group over the one card): a data-parallel
+mixed train step equals the step without a group (cuDNN deterministic;
+loss within 1e-5 relative), and ``prob`` through ``Classifier(mesh=)``
+equals the run without a mesh (within 1.2e-5, the same ids), K1 launched
+on both.
 """
 
 import numpy as np
@@ -470,3 +475,72 @@ def test_rotation_train_step_on_the_card(cuda, tmp_path):
     assert (resize_pad.launches, resize_pad.train_launches) == (
         before[0] + parts, before[1])
     assert np.isfinite(float(loss)) and float(n) > 0
+
+
+@pytest.mark.gpu
+def test_nccl_world_one_trainer_and_engine(cuda, tmp_path):
+    import copy
+    from pathlib import Path
+
+    from sykepic_tpu_torch import parallel
+    from sykepic_tpu_torch.compute import probability
+    from sykepic_tpu_torch.models import registry
+    from sykepic_tpu_torch.parallel import dryrun
+    from sykepic_tpu_torch.train.config import PreprocessSpec
+    from sykepic_tpu_torch.train.device_data import DeviceDataset
+    from sykepic_tpu_torch.train.trainer import Trainer
+    from sykepic_tpu_torch.utils import png
+
+    rng = np.random.default_rng(6)
+    paths, labels = [], []
+    for i in range(40):
+        h, w = rng.integers(10, 120, 2)
+        p = tmp_path / f"img_{i:03}.png"
+        png.write_png(p, rng.integers(0, 256, (h, w), dtype=np.uint8))
+        paths.append(p)
+        labels.append(i % 3)
+    spec = PreprocessSpec(180, 180, 3, border="mode")
+    ds = DeviceDataset(paths, labels, spec, batch_size=16, seed=0,
+                       shuffle=True, device=cuda)
+    batch = next(iter(ds))
+    model = registry.init_weights(
+        registry.build_model("resnet18", 3, head=(256, 128)), 0)
+    aug = augment.spec_kwargs(("flip", "translate", "zoom", "brightness"),
+                              (0.6, 1.4), (0.95, 1.1), 0)
+    mdir = dryrun.build_model_dir(tmp_path)
+    fixture = Path(dryrun.FIXTURE)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = Trainer(copy.deepcopy(model), "Adam", spec, aug, seed=1,
+                        device=cuda, dtype="bfloat16")
+        want = [float(v) for v in plain.train_batch(batch, 2,
+                                                    (1e-3, 1e-4, 1e-5))]
+        probability.main([fixture], mdir, tmp_path / "plain", 4,
+                         progress_bar=False)
+        dev = parallel.init_process_group("cuda", tmp_path / "store", 0, 1)
+        try:
+            mesh = parallel.data_mesh()
+            before = resize_pad.train_launches
+            dp = Trainer(copy.deepcopy(model), "Adam", spec, aug, seed=1,
+                         device=dev, dtype="bfloat16", mesh=mesh)
+            got = [float(v) for v in dp.train_batch(batch, 2,
+                                                    (1e-3, 1e-4, 1e-5))]
+            assert resize_pad.train_launches == before + len(batch.stores)
+            before = resize_pad.launches
+            probability.main([fixture], mdir, tmp_path / "mesh", 4,
+                             progress_bar=False, mesh=mesh)
+            torch.cuda.synchronize()
+            assert resize_pad.launches > before
+        finally:
+            parallel.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    assert got[2] == want[2] and got[1] == want[1]
+    assert abs(got[0] - want[0]) <= 1e-5 * abs(want[0])
+    (a,) = dryrun.csv_paths(tmp_path, "plain")
+    pa = dryrun.read_prob_csv(a)
+    pb = dryrun.read_prob_csv(tmp_path / "mesh" / a.relative_to(
+        tmp_path / "plain"))
+    assert pa.keys() == pb.keys() and pa
+    assert max(float(np.abs(pa[r] - pb[r]).max()) for r in pa) <= 1.2e-5

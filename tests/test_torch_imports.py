@@ -50,7 +50,10 @@ def test_imports_with_jax_blocked():
     assert len(names) >= 37  # every module, not only the top level
     for new in ("sykepic_tpu_torch.train.loop", "sykepic_tpu_torch.utils.png",
                 "sykepic_tpu_torch.ops.augment",
-                "sykepic_tpu_torch.train.device_data"):
+                "sykepic_tpu_torch.train.device_data",
+                "sykepic_tpu_torch.parallel",
+                "sykepic_tpu_torch.parallel.launch",
+                "sykepic_tpu_torch.parallel.dryrun"):
         assert new in names
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKER, *names], cwd=REPO,
@@ -95,3 +98,49 @@ def test_cuda_without_card_raises(model_dir):
     assert device.resolve("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         device.resolve("meta")
+
+
+def test_mesh_on_cuda_without_card_raises(model_dir, tmp_path):
+    """A mesh does not move the device rule: asking a Trainer or a
+    Classifier for ``cuda`` with a mesh, or a NCCL group, raises without a
+    card; a gloo group's mesh serves the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the no-card rule is moot")
+    from sykepic_tpu_torch import parallel
+    from sykepic_tpu_torch.compute.engine import Classifier
+    from sykepic_tpu_torch.models import registry
+    from sykepic_tpu_torch.train.trainer import Trainer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        parallel.init_process_group("cuda", tmp_path / "nccl", 0, 1)
+    assert not parallel.is_initialized()
+    dev = parallel.init_process_group("cpu", tmp_path / "gloo", 0, 1)
+    try:
+        mesh = parallel.data_mesh()
+        assert dev == torch.device("cpu")
+        assert parallel.data_axis_size(mesh) == 1
+        model = registry.build_model("resnet18", 3, head=(8,))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Trainer(model, device="cuda", mesh=mesh)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Classifier(model_dir, device="cuda", mesh=mesh)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Trainer(model)  # cuda is the default, mesh or not
+        assert Trainer(model, device="cpu").mesh is not None  # the group's
+    finally:
+        parallel.destroy_process_group()
+
+
+def test_dry_run_takes_the_cards_by_default(tmp_path):
+    """The multi-process dry run is an entry point like the others: it runs
+    on the cards unless asked for the CPU, and raises without a card
+    before it spawns anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the no-card rule is moot")
+    from sykepic_tpu_torch.parallel import dryrun
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.main(["2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.run(2, tmp_path)
+    assert not any(tmp_path.iterdir())

@@ -66,9 +66,20 @@ def test_rerun_skips_unless_forced(tmp_path, model_dir):
 
 
 def test_image_inputs_name_their_slice(tmp_path, model_dir):
-    with pytest.raises(NotImplementedError, match="slice"):
-        main(["prob", "--image-dir", str(tmp_path), "-m", str(model_dir),
-              "-o", str(tmp_path), "--device", "cpu"])
+    # the image inputs are ported (held against JAX in
+    # tests/test_torch_prob_images.py): a directory's PNGs group into
+    # samples by name, one CSV each in the output directory itself
+    from sykepic_tpu_torch.utils import png
+
+    images = tmp_path / "images"
+    images.mkdir()
+    png.write_png(images / "D20200101T000000_IFCB1_00003.png",
+                  np.full((20, 30), 120, np.uint8))
+    out = tmp_path / "out"
+    main(["prob", "--image-dir", str(images), "-m", str(model_dir),
+          "-o", str(out), "--device", "cpu"])
+    lines = (out / "D20200101T000000_IFCB1.prob.csv").read_text().splitlines()
+    assert len(lines) == 2 and lines[1].startswith("3,")
 
 
 def test_cuda_flag_without_card_raises(tmp_path, model_dir):

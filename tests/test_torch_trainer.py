@@ -187,20 +187,28 @@ def test_schedule_equals_jax_on_a_long_run():
 
 def _jax_grads(jt, hb):
     """The JAX step's loss and gradients on ``hb`` (its own preprocess and
-    loss, ``trainer.py:225-242``), before any update."""
+    loss, ``trainer.py:225-242``), before any update, on the trainer's
+    mesh-placed inputs and state.
+
+    Taken as two jitted programs: run op by op on the 8-virtual-device mesh
+    of ``tests/conftest.py`` (every op a small multi-device program with its
+    own cross-device rendezvous), the reference aborted the xdist worker
+    now and then under the full suite's load."""
     args = jt._batch_device_args(hb)
-    x = jt._device_preprocess(*args[:10], None, train=True)
+    x = jax.jit(lambda *a: jt._device_preprocess(*a, None, train=True))(
+        *args[:10])
     y, wts = args[10], args[11]
 
-    def loss_fn(p):
+    def loss_fn(p, batch_stats, x, y, wts):
         logits, mutated = jt.model.apply(
-            {"params": p, "batch_stats": jt.batch_stats}, x, train=True,
+            {"params": p, "batch_stats": batch_stats}, x, train=True,
             mutable=["batch_stats"], rngs={"dropout": jax.random.PRNGKey(0)})
         losses = optax.softmax_cross_entropy_with_integer_labels(
             logits.astype(jnp.float32), y)
         return jnp.sum(losses * wts) / jnp.maximum(jnp.sum(wts), 1.0)
 
-    return jax.value_and_grad(loss_fn)(jt.params)
+    return jax.jit(jax.value_and_grad(loss_fn))(jt.params, jt.batch_stats,
+                                                x, y, wts)
 
 
 @pytest.mark.parametrize("optimizer", ["Adam", "AdamW", "SGD", "RMSprop"])
