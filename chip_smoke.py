@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``sykepic_tpu_torch``) on one NVIDIA
-card: the ``prob`` main path and the fused ``pipeline --device-features``
-path at full width, and every kernel on them held against its plain PyTorch
-version.
+card: the ``prob`` main path, the fused ``pipeline --device-features``
+path, ``train``, the other families, the multi-GPU path, and the deployment
+path (the host-thread ``pipeline``, ``watch`` and ``export``) at full
+width, and every kernel on them held against its plain PyTorch version.
 
 Run from the root of a checkout, on a machine with a card::
 
@@ -10,10 +11,11 @@ Run from the root of a checkout, on a machine with a card::
 
 Phases, one JSON object per line on stdout:
 
-1. ``env``: the card (``nvidia-smi`` name and power limit), torch and CUDA
-   versions, and the build seconds of ``csrc/*.cu`` (nvcc, one process per
-   source, all started together, into ``build/kernels/``) and of the native
-   host library.
+1. ``env``: the card (``nvidia-smi`` name and power limit), torch, CUDA,
+   scipy and numpy versions, whether pandas imports, the host's cores, and
+   the build seconds of ``csrc/*.cu`` (nvcc, one process per source, all
+   started together, into ``build/kernels/``) and of the native host
+   library.
 2. ``kernel_resize_pad``: K1 against its plain version at the main path's
    shapes (the first shelf dispatch of the workload, a crafted shelf
    dispatch, slot canvases of 64x128 and one of 512x512), in float32
@@ -86,14 +88,16 @@ Phases, one JSON object per line on stdout:
    over the decode threads), and a single-threaded decode of 200 files of
    each kind with the native unfilter and with its Python twin.
 9. ``kernel_resize_pad_train``: K1's train form against its plain version
-   in float32 on 2,048 slots of the largest store of that run: random
-   affines with both flips, zoom 0.6 and 1.4, translations at -limit and
-   +limit, brightness on and off (max |diff| <= 1e-3/255); ms by events
+   on 2,048 slots of the largest store of that run: random affines with
+   both flips, zoom 0.6 and 1.4, translations at -limit and +limit, in
+   float32 with brightness on and off (max |diff| <= 1e-3/255) and in
+   bfloat16 with brightness on (within one bf16 ulp of the plain version
+   cast to bf16; the store ``[train] dtype = bfloat16`` writes); ms by events
    (one call each), device ms (torch.profiler, per kernel it recorded of
    20 launches), loop ms (20 back-to-back calls between two events, with
    a new output each and into one preallocated output), plain ms and the
    byte bound (uint8 reads, the slot inputs and
-   float32 NHWC writes at 3.35 TB/s).
+   the NHWC writes, 4 or 2 bytes an element, at 3.35 TB/s).
 10. ``train_step_card_vs_cpu``: one float32 train step (no augmentation, no
    dropout) of the full-width model on 32 images of the set, on the card
    and on the CPU from the same weights: loss within 1e-4 relative, the
@@ -133,8 +137,29 @@ Phases, one JSON object per line on stdout:
    with the group and without it, ``prob``'s ROIs/s with the mesh and
    without it, the launches, and
    ``torch.distributed.is_nccl_available()``.
+13. ``pipeline_host``: the fixture plus 1,000 synthetic ROIs (samples of
+   100) through ``python -m sykepic_tpu_torch pipeline ... -b 2048 -w 8``,
+   the host-thread mode (features on 8 host threads beside the
+   classification on the card), cold and warm under torch.profiler:
+   every sample returned, K1 launched once per dispatch; the ``.prob.csv``
+   files equal ``prob``'s on the same samples (ids and argmax, within
+   1.2e-5) and the ``.feat.csv`` files are byte-identical to ``feat -p``'s
+   (``# version=tpu-v1``). Printed: e2e ROIs/s, the device's busy share,
+   the host's cores, and the host features' own ROIs/s on 200 of the ROIs
+   at 1, 2, 4 and 8 threads.
+14. ``watch``: ``watch.run(..., interval=0, settle_seconds=0,
+   max_cycles=2)`` on the card over the fixture and one synthetic sample,
+   a third copied in by the sleep hook after cycle 1: each sample goes
+   through ``pipeline.main`` exactly once, all three are returned, K1
+   launches, and the CSVs equal ``pipeline_host``'s.
+15. ``export``: ``python -m sykepic_tpu_torch export`` on the ``train``
+   phase's model directory (a port-written ``best_state.msgpack``); a
+   directory holding only ``config.ini``, ``class_names.txt`` and that
+   ``best_state.pth`` runs ``prob`` on the card over the comparison set
+   exactly as the msgpack directory does (max |dp| 0.0).
 
-Then the ``kernels`` line (K1's eval form, K1's train form, K2), the
+Then the ``kernels`` line (K1's eval form, with its launches on every
+path, K1's train form, with its bfloat16 case, and K2), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a card, or outside a checkout, the script exits non-zero at once.
@@ -143,6 +168,7 @@ Everything it writes goes to ``build/chip_smoke/``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -251,17 +277,18 @@ def write_sample(raw_dir: Path, name: str, imgs) -> Path:
     return raw_dir / name
 
 
-def build_raw(raw_dir: Path, n_rois: int, seed: int, start: datetime):
+def build_raw(raw_dir: Path, n_rois: int, seed: int, start: datetime,
+              per_sample: int = PER_SAMPLE):
     """The fixture sample plus ``n_rois`` synthetic ROIs in samples of
-    ``PER_SAMPLE``; returns ``{sample path: number of ROIs}``."""
+    ``per_sample``; returns ``{sample path: number of ROIs}``."""
     raw_dir.mkdir(parents=True)
     for suffix in (".adc", ".roi", ".hdr"):
         shutil.copy(FIXTURE.with_suffix(suffix), raw_dir)
     images = fixture_images()
     rng = np.random.default_rng(seed)
     counts = {raw_dir / FIXTURE.name: len(images)}
-    for s in range(-(-n_rois // PER_SAMPLE)):
-        n = min(PER_SAMPLE, n_rois - s * PER_SAMPLE)
+    for s in range(-(-n_rois // per_sample)):
+        n = min(per_sample, n_rois - s * per_sample)
         name = f"D{start + timedelta(minutes=s):%Y%m%dT%H%M%S}_IFCB114"
         imgs = [resampled(rng, images, h, w) for h, w in roi_shapes(rng, n)]
         counts[write_sample(raw_dir, name, imgs)] = n
@@ -352,9 +379,18 @@ def phase_env(smi: str) -> dict:
     kernel_s = cuda_build.build_all()
     th.join()
     check(native_s["lib"] is not None, "the native host library did not build")
+    import scipy  # the host features' (feat, pipeline, watch)
+
+    try:
+        import pandas  # noqa: F401  (only feat --matlab needs it)
+        has_pandas = True
+    except ImportError:
+        has_pandas = False
     out = {"phase": "env", "gpu": smi, "device": torch.cuda.get_device_name(0),
            "torch": torch.__version__, "cuda": torch.version.cuda,
-           "python": sys.version.split()[0], "build_s": kernel_s,
+           "python": sys.version.split()[0], "scipy": scipy.__version__,
+           "numpy": np.__version__, "pandas_importable": has_pandas,
+           "cpu_count": os.cpu_count(), "build_s": kernel_s,
            "native_build_s": native_s["s"]}
     emit(out)
     return out
@@ -1411,8 +1447,8 @@ def phase_train(smi: str) -> dict:
 def phase_kernel_train(run: dict) -> dict:
     """K1's train form against its plain version on ``TRAIN_SLOTS`` slots
     of the largest store of the training run (rows of its last epoch,
-    repeated), float32, brightness on and off; returns the brightness-on
-    case."""
+    repeated): float32 with brightness on and off, and bfloat16 with it on;
+    returns the cases by name."""
     from sykepic_tpu_torch.ops import augment, preprocess, resize_pad
 
     stores, idxs = run["args"][0], run["args"][1]
@@ -1446,22 +1482,38 @@ def phase_kernel_train(run: dict) -> dict:
         affine.nbytes
     inside = int((m[5] * m[6]).sum())
     cases = {}
-    for tag, bright in (("bright_on", draws.bright), ("bright_off", None)):
-        def call():
-            return resize_pad.resize_pad(pix, meta, 180, 180, 3,
-                                         torch.float32, affine=affine,
-                                         bright=bright)
+    # float32 with brightness on and off, and bfloat16 (what training
+    # stores under [train] dtype = bfloat16) with it on
+    for tag, bright, dtype in (
+            ("bright_on", draws.bright, torch.float32),
+            ("bright_off", None, torch.float32),
+            ("bright_on_bf16", draws.bright, torch.bfloat16)):
+        def call(out=None, bright=bright, dtype=dtype):
+            return resize_pad.resize_pad(pix, meta, 180, 180, 3, dtype,
+                                         affine=affine, bright=bright,
+                                         out=out)
+
+        def plain(bright=bright, dtype=dtype):
+            return preprocess.resize_pad_plain(pix, meta, 180, 180, 3, dtype,
+                                               affine=affine, bright=bright)
 
         before = resize_pad.train_launches
         got = call()
         torch.cuda.synchronize()
         check(resize_pad.train_launches == before + 1,
               "K1's train form did not launch")
-        plain = preprocess.resize_pad_plain(pix, meta, 180, 180, 3,
-                                            affine=affine, bright=bright)
-        err = float((got - plain).abs().max())
+        check(got.dtype == dtype, f"K1 train form {tag}: {got.dtype}")
+        want = preprocess.resize_pad_plain(pix, meta, 180, 180, 3,
+                                           affine=affine, bright=bright)
+        diff = (got.float() - want.to(dtype).float()).abs()
+        err = float(diff.max())
+        if dtype == torch.float32:
+            check(err <= 1e-3 / 255, f"K1 train form {tag}: max |diff| {err}")
+        else:  # one bf16 ulp of the plain version cast to bf16
+            ulp = want.to(dtype).float().abs() * 2.0 ** -7
+            check(bool((diff <= ulp).all()),
+                  f"K1 train form {tag}: beyond one bf16 ulp")
         out = torch.empty_like(got)
-        check(err <= 1e-3 / 255, f"K1 train form {tag}: max |diff| {err}")
         written = got.numel() * got.element_size()
         nbytes = read + written + (0 if bright is None else bright.nbytes)
         # per kernel the profiler recorded: a session may drop records
@@ -1476,18 +1528,14 @@ def phase_kernel_train(run: dict) -> dict:
             "device_kernels_recorded": recorded,
             "loop_ms": loop_ms(call, TIMED_LAUNCHES),
             # back to back into one preallocated output: no allocation
-            "loop_ms_out": loop_ms(lambda: resize_pad.resize_pad(
-                pix, meta, 180, 180, 3, torch.float32, affine=affine,
-                bright=bright, out=out), TIMED_LAUNCHES),
-            "plain_ms": time_ms(lambda: preprocess.resize_pad_plain(
-                pix, meta, 180, 180, 3, affine=affine, bright=bright),
-                TIMED_PLAIN),
+            "loop_ms_out": loop_ms(lambda: call(out), TIMED_LAUNCHES),
+            "plain_ms": time_ms(plain, TIMED_PLAIN),
             "bound_ms": 1e3 * max(bytes_s, ops_s),
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
             "bytes": nbytes}
     emit({"phase": "kernel_resize_pad_train", "slots": r,
           "store": list(pix.shape), **cases})
-    return cases["bright_on"]
+    return cases
 
 
 def phase_train_step_compare(run: dict) -> None:
@@ -1805,11 +1853,15 @@ def _epochs(trainer, plans) -> list:
     return out
 
 
-def _prob_trees_agree(a: Path, b: Path, what: str) -> dict:
-    """Two ``.prob.csv`` trees: the same files and ids, the same argmax
-    outside ties within two quanta, values within ``PROB_BOUND``."""
+def _prob_trees_agree(a: Path, b: Path, what: str,
+                      subset: bool = False) -> dict:
+    """Two ``.prob.csv`` trees: the same files (with ``subset``, ``a``'s
+    files among ``b``'s) and ids, the same argmax outside ties within two
+    quanta, values within ``PROB_BOUND``."""
     files_a = sorted(p.relative_to(a) for p in a.rglob("*.prob.csv"))
     files_b = sorted(p.relative_to(b) for p in b.rglob("*.prob.csv"))
+    if subset:
+        files_b = [f for f in files_b if f in files_a]
     check(files_a == files_b and files_a, f"{what}: CSV files differ")
     worst, rows, argmax_diff = 0.0, 0, 0
     for rel in files_a:
@@ -1978,6 +2030,228 @@ def phase_parallel(run: dict, model_dir: Path, counts: dict,
             "k2": sum(k2_fused.values())}
 
 
+# -- the deployment path: host features, pipeline, watch, export --------------
+
+HOST_ROIS = 1000  # the host-thread pipeline's synthetic ROIs
+HOST_PER_SAMPLE = 100
+HOST_THREADS = 8  # pipeline -w, the CLI's default
+SCALING_ROIS = 200  # ROIs of the host features' thread-scaling case
+SCALING_THREADS = (1, 2, 4, 8)
+
+
+def feat_trees_identical(a: Path, b: Path, what: str,
+                         subset: bool = False) -> int:
+    """Two ``.feat.csv`` trees byte for byte (with ``subset``, ``a``'s
+    files among ``b``'s), every file under ``# version=tpu-v1``; returns
+    the number of files."""
+    files_a = sorted(p.relative_to(a) for p in a.rglob("*.feat.csv"))
+    files_b = sorted(p.relative_to(b) for p in b.rglob("*.feat.csv"))
+    if subset:
+        files_b = [f for f in files_b if f in files_a]
+    check(files_a == files_b and files_a, f"{what}: feat CSV files differ")
+    for rel in files_a:
+        body = (a / rel).read_bytes()
+        check(body.startswith(b"# version=tpu-v1\n"), f"{what}: {rel} version")
+        check(body == (b / rel).read_bytes(), f"{what}: {rel} differs")
+    return len(files_a)
+
+
+def feature_rate(images, threads: int) -> float:
+    """ROIs/s of ``compute_features`` over ``images`` on ``threads`` host
+    threads, from an empty filter-bank cache."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sykepic_tpu_torch.compute import features
+
+    with features._bank_lock:
+        features._bank_cache.clear()
+        features._bank_cache_total = 0
+    t0 = time.perf_counter()
+    if threads == 1:
+        for img in images:
+            features.compute_features(img)
+    else:
+        with ThreadPoolExecutor(threads) as pool:
+            list(pool.map(features.compute_features, images))
+    return len(images) / (time.perf_counter() - t0)
+
+
+def phase_pipeline_host(model_dir: Path) -> dict:
+    """The host-thread ``pipeline`` (features on ``HOST_THREADS`` host
+    threads beside the classification on the card) through the CLI, cold
+    and warm under torch.profiler; held against ``prob`` and ``feat`` on the
+    same samples; the host features alone at ``SCALING_THREADS`` threads.
+    Returns K1's launches of the cold run and what the ``watch`` phase
+    reads."""
+    from sykepic_tpu_torch.__main__ import main
+    from sykepic_tpu_torch.ingest import ifcb
+    from sykepic_tpu_torch.models import checkpoint
+    from sykepic_tpu_torch.ops import resize_pad
+
+    raw = WORK / "raw_host"
+    counts = build_raw(raw, HOST_ROIS, seed=17, start=datetime(2020, 6, 1),
+                       per_sample=HOST_PER_SAMPLE)
+    samples = list(counts)
+    n_rois = sum(counts.values())
+    dispatches = count_dispatches(samples, "shelf")
+    classes = checkpoint.read_class_names(model_dir)
+    out = WORK / "out_host"
+    argv = ["pipeline", "-r", str(raw), "-m", str(model_dir), "-o", str(out),
+            "-b", str(BATCH), "-w", str(HOST_THREADS)]
+    runs = {}
+
+    def run(name, force):
+        resize_pad.launches = 0
+        t0 = time.perf_counter()
+        written = main(argv + (["-f"] if force else []))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if name == "cold":
+            check(written == {p.name for p in samples},
+                  f"pipeline_host: returned {len(written)} of "
+                  f"{len(samples)} samples")
+        check(resize_pad.launches == dispatches,
+              f"pipeline_host {name}: K1 launched {resize_pad.launches} "
+              f"times for {dispatches} dispatches")
+        runs[name] = {"seconds": seconds, "rois_per_s": n_rois / seconds,
+                      "k1_launches": resize_pad.launches}
+
+    run("cold", False)
+    check_csvs(out, counts, classes)
+    # warm, under torch.profiler: the device's busy share of the wall
+    profile = device_profile(lambda: run("warm_profiled", True))
+
+    # the same samples through prob and feat
+    prob_out, feat_out = WORK / "out_host_prob", WORK / "out_host_feat"
+    main(["prob", "-r", str(raw), "-m", str(model_dir), "-o", str(prob_out),
+          "-b", str(BATCH)])
+    prob_cmp = _prob_trees_agree(out, prob_out, "pipeline_host vs prob")
+    t0 = time.perf_counter()
+    main(["feat", "-r", str(raw), "-o", str(feat_out), "-p"])
+    feat_s = time.perf_counter() - t0
+    n_feat = feat_trees_identical(out, feat_out, "pipeline_host vs feat")
+
+    images = [img for p in samples[1:] for _, img in
+              ifcb.read_sample(p).images()][:SCALING_ROIS]
+    rates = {f"threads_{n}": feature_rate(images, n)
+             for n in SCALING_THREADS}
+    emit({"phase": "pipeline_host", "rois": n_rois, "samples": len(samples),
+          "batch": BATCH, "feature_threads": HOST_THREADS,
+          "dispatches": dispatches, "runs": runs,
+          "device_busy_share": profile["device_busy_share"],
+          "device_busy_ms": profile["device_busy_ms"],
+          "k1_share_of_device": profile["k1_share_of_device"],
+          "device_ms_by_kind": profile["device_ms_by_kind"],
+          "cpu_count": os.cpu_count(),
+          "host_features_rois_per_s": {"rois": len(images), **rates},
+          "vs_prob": prob_cmp, "feat_csvs_identical": n_feat,
+          "feat_parallel_seconds": feat_s})
+    return {"launches": runs["cold"]["k1_launches"], "out": out,
+            "samples": samples}
+
+
+def settled_copy(sample: Path, raw_dir: Path) -> None:
+    """Copy a raw triplet into ``raw_dir`` with an hour-old mtime."""
+    past = time.time() - 3600
+    for suffix in (".adc", ".roi", ".hdr"):
+        dst = raw_dir / (sample.name + suffix)
+        shutil.copy(sample.with_suffix(suffix), dst)
+        os.utime(dst, (past, past))
+
+
+def phase_watch(model_dir: Path, host: dict) -> int:
+    """The ``watch`` daemon on the card over three of ``pipeline_host``'s
+    samples: the fixture and one synthetic sample settled at the start, a
+    third copied in by the sleep hook after cycle 1. Each is processed
+    exactly once, all three are returned, and the CSVs equal
+    ``pipeline_host``'s. Returns K1's launches."""
+    from sykepic_tpu_torch.compute import pipeline, probability, watch
+    from sykepic_tpu_torch.ops import resize_pad
+
+    raw = WORK / "raw_watch"
+    raw.mkdir()
+    first, second, third = host["samples"][:3]
+    settled_copy(first, raw)
+    settled_copy(second, raw)
+    out = WORK / "out_watch"
+    clf = probability.prepare_model(model_dir, batch_size=BATCH)
+    calls = []
+    real_main = pipeline.main
+
+    def recording(paths, *args, **kwargs):
+        calls.append(sorted(p.name for p in paths))
+        return real_main(paths, *args, **kwargs)
+
+    sleeps = []
+
+    def hook(seconds):
+        sleeps.append(seconds)
+        if len(sleeps) == 1:  # after cycle 1: a new sample arrives
+            settled_copy(third, raw)
+
+    pipeline.main = recording
+    try:
+        resize_pad.launches = 0
+        t0 = time.perf_counter()
+        done = watch.run(raw, clf, out, interval=0, settle_seconds=0,
+                         max_cycles=2, sleep=hook)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        pipeline.main = real_main
+    launches = resize_pad.launches
+    names = {first.name, second.name, third.name}
+    check(done == names, f"watch returned {sorted(done)}")
+    check(calls == [sorted([first.name, second.name]), [third.name]],
+          f"watch processed {calls}: not each sample exactly once")
+    check(launches > 0, "watch never launched K1")
+    prob_cmp = _prob_trees_agree(out, host["out"], "watch vs pipeline_host",
+                                 subset=True)
+    n_feat = feat_trees_identical(out, host["out"], "watch vs pipeline_host",
+                                  subset=True)
+    emit({"phase": "watch", "cycles": 2, "calls": calls,
+          "seconds": seconds, "k1_launches": launches,
+          "vs_pipeline_host": prob_cmp, "feat_csvs_identical": n_feat})
+    return launches
+
+
+def phase_export(run: dict) -> dict:
+    """``python -m sykepic_tpu_torch export`` on the ``train`` phase's
+    model directory (``best_state.msgpack`` written by the port); a second
+    directory holding only ``config.ini``, ``class_names.txt`` and that
+    ``best_state.pth`` classifies the comparison set on the card exactly
+    as the msgpack directory does."""
+    from sykepic_tpu_torch.__main__ import main
+    from sykepic_tpu_torch.models import checkpoint
+
+    model_dir = Path(run["model_dir"])
+    check((model_dir / checkpoint.BEST_STATE).is_file(),
+          "the train phase wrote no best_state.msgpack")
+    with contextlib.redirect_stdout(sys.stderr):  # its "Wrote ..." line
+        main(["export", str(model_dir)])
+    pth = model_dir / checkpoint.TORCH_STATE
+    state = torch.load(pth, map_location="cpu", weights_only=True)
+    check(any(k.startswith("base.") for k in state),
+          "export wrote no reference base.N keys")
+    pth_dir = WORK / "export_pth_only"
+    pth_dir.mkdir()
+    for f in ("config.ini", "class_names.txt", checkpoint.TORCH_STATE):
+        shutil.copy(model_dir / f, pth_dir)
+    raw = WORK / "raw_compare"
+    outs = {}
+    for tag, d in (("msgpack", model_dir), ("pth", pth_dir)):
+        outs[tag] = WORK / f"out_export_{tag}"
+        main(["prob", "-r", str(raw), "-m", str(d), "-o", str(outs[tag]),
+              "-b", str(BATCH)])
+    cmp = _prob_trees_agree(outs["pth"], outs["msgpack"], "export")
+    check(cmp["max_abs_dp"] == 0.0,
+          f"export: the .pth dir differs by {cmp['max_abs_dp']}")
+    out = {"phase": "export", "keys": len(state), "pth_bytes":
+           pth.stat().st_size, **cmp}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -2023,10 +2297,16 @@ def main() -> int:
           "form")
     timed("pipeline_card_vs_cpu", phase_pipeline_compare, model_dir)
     run = timed("train", phase_train, smi)
-    k1_train = timed("kernel_resize_pad_train", phase_kernel_train, run)
+    k1_train_cases = timed("kernel_resize_pad_train", phase_kernel_train, run)
+    k1_train = k1_train_cases["bright_on"]
+    k1_bf16 = k1_train_cases["bright_on_bf16"]
     timed("train_step_card_vs_cpu", phase_train_step_compare, run)
     families = timed("families", phase_families, run, smi)
     par = timed("parallel", phase_parallel, run, model_dir, counts, smi)
+    host = timed("pipeline_host", phase_pipeline_host, model_dir)
+    check(host["launches"] > 0, "the host-thread pipeline never launched K1")
+    watch_launches = timed("watch", phase_watch, model_dir, host)
+    timed("export", phase_export, run)
     emit({"phase_seconds": seconds})
     k = main_case["f32"]
     emit({"kernels": [{
@@ -2044,6 +2324,10 @@ def main() -> int:
         # prob and the fused pass through Classifier(mesh=) at world size 1
         "parallel_launches": {"prob": par["k1"]["prob"],
                               "pipeline": par["k1"]["pipeline"]},
+        # the host-thread pipeline's cold run and the watch daemon's two
+        # cycles, each counted from 0
+        "pipeline_host_launches": host["launches"],
+        "watch_launches": watch_launches,
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
@@ -2071,6 +2355,12 @@ def main() -> int:
         "bound_ms": k1_train["bound_ms"],
         "bound_by": k1_train["bound_by"],
         "library_ms": None,
+        # the same 2,048 slots stored in bfloat16, as [train] dtype =
+        # bfloat16 stores them; max_abs_err against the plain version cast
+        # to bf16 (within one bf16 ulp, checked)
+        "bf16": {k: k1_bf16[k] for k in (
+            "max_abs_err", "ms", "device_ms", "loop_ms", "plain_ms",
+            "bound_ms", "bound_by")},
     }, {
         # ms, plain_ms and bound_ms: the seven floods of the first fused
         # dispatch, summed; launches: every form in the fused run

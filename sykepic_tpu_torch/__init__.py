@@ -15,9 +15,14 @@ Layout (the JAX package's layer map):
   resize/pad kernel in ``csrc/resize_pad.cu``), the on-device geometry
   features (the hand-written flood kernel in ``csrc/flood.cu``) and the wire
   decoder
-- :mod:`sykepic_tpu_torch.models`  -- ResNet family + checkpoint loading
-- :mod:`sykepic_tpu_torch.compute` -- the inference engine, ``prob`` and
-  the fused ``pipeline --device-features``
+- :mod:`sykepic_tpu_torch.models`  -- every model family, checkpoint
+  loading and ``export`` (a reference-loadable ``best_state.pth``)
+- :mod:`sykepic_tpu_torch.compute` -- the inference engine, ``prob``, the
+  host features and ``feat`` (numpy and scipy), ``pipeline`` (host-thread
+  features beside the device, or ``--device-features``) and the ``watch``
+  daemon
+- :mod:`sykepic_tpu_torch.train`   -- ``train``
+- :mod:`sykepic_tpu_torch.parallel` -- several cards (torch.distributed)
 - :mod:`sykepic_tpu_torch.device`  -- device resolution (cuda by default)
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``.

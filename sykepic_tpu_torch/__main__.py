@@ -1,19 +1,28 @@
 """CLI entry point: ``python -m sykepic_tpu_torch`` (the port of
 ``sykepic_tpu/__main__.py``).
 
-The port carries the ``train``, ``prob`` and ``pipeline`` sub-commands,
-with the JAX package's argument surface plus ``--device``::
+The port carries the ``train``, ``prob``, ``feat``, ``pipeline``, ``watch``
+and ``export`` sub-commands, with the JAX package's argument surface plus
+``--device`` where the card is used::
 
     python -m sykepic_tpu_torch train CONFIG.ini [--device cuda|cpu]
     python -m sykepic_tpu_torch prob -r DIR -m MODEL -o OUT [-b N] [-f]
                                      [--device cuda|cpu]
+    python -m sykepic_tpu_torch feat -r DIR -o OUT [-m MATLAB] [-p] [-f]
     python -m sykepic_tpu_torch pipeline -r DIR -m MODEL -o OUT
                                      [--feat-out DIR] [-b N] [-w N] [-f]
-                                     --device-features [--device cuda|cpu]
+                                     [--device-features] [--device cuda|cpu]
+    python -m sykepic_tpu_torch watch -r DIR -m MODEL -o OUT [--feat-out DIR]
+                                     [-b N] [-i S] [--settle S]
+                                     [--device cuda|cpu]
+    python -m sykepic_tpu_torch export MODEL [-o FILE]
 
-``pipeline`` runs only with ``--device-features`` (the fused on-device
-pass); its host-thread mode, ``train``'s ``--save-images``/``--dist``/
-``--collage`` and the other sub-commands are ROADMAP Queue 1 item 12.
+``feat`` and ``export`` run on the host and take no ``--device``.
+``pipeline`` computes features on host threads beside the classification
+on the card, or with ``--device-features`` on the card; ``watch`` runs the
+host-thread ``pipeline`` over new samples. ``train``'s ``--save-images``/
+``--dist``/``--collage`` and the pandas CSV sub-commands are not ported
+yet (ROADMAP Queue 1 items 12d-12e).
 
 Several cards (:mod:`sykepic_tpu_torch.parallel`): under ``torchrun
 --nproc-per-node N`` every sub-command's ranks form one group (NCCL, each
@@ -110,11 +119,45 @@ def main(argv=None):
         help="cuda (default; fails without a card) or cpu",
     )
 
+    # feat
+    feat_parser = subparsers.add_parser("feat", description="Extract features")
+    feat_parser.set_defaults(func=_feat)
+    feat_raw = feat_parser.add_mutually_exclusive_group(required=True)
+    feat_raw.add_argument(
+        "-r", "--raw", metavar="DIR", help="Root directory of raw IFCB data"
+    )
+    feat_raw.add_argument(
+        "-s",
+        "--samples",
+        nargs="+",
+        metavar="SAMPLE PATH",
+        help="One or more sample paths (raw file without suffix)",
+    )
+    feat_parser.add_argument(
+        "-o", "--out", metavar="DIR", required=True, help="Root output directory"
+    )
+    feat_parser.add_argument(
+        "-m",
+        "--matlab",
+        metavar="FILE",
+        help="Matlab binary path (and use it instead of the native backend)",
+    )
+    feat_parser.add_argument(
+        "-p", "--parallel", action="store_true", help="Use multiple cores"
+    )
+    feat_parser.add_argument(
+        "-f",
+        "--force",
+        action="store_true",
+        help="Force overwrite of previous features",
+    )
+
     # pipeline (fused prob + feat in one pass)
     pipeline_parser = subparsers.add_parser(
         "pipeline",
         description="Fused single pass: probabilities AND features from one "
-        "decode (--device-features: both computed on the device)",
+        "decode (the device classifies while host threads extract features; "
+        "--device-features: both on the device)",
     )
     pipeline_parser.set_defaults(func=_pipeline)
     pipeline_raw = pipeline_parser.add_mutually_exclusive_group(required=True)
@@ -139,8 +182,7 @@ def main(argv=None):
     )
     pipeline_parser.add_argument(
         "-w", "--num-workers", type=int, default=8, metavar="INT",
-        help="Feature-extraction threads of the host-thread mode (not "
-        "ported yet), default is 8",
+        help="Feature-extraction threads, default is 8",
     )
     pipeline_parser.add_argument(
         "-f", "--force", action="store_true",
@@ -149,12 +191,59 @@ def main(argv=None):
     pipeline_parser.add_argument(
         "--device-features", action="store_true",
         help="Extract geometry features on the device in the classification "
-        "batch stream (chamfer-EDT biovolume; version tpu-dev-v1); the only "
-        "mode ported so far",
+        "batch stream (chamfer-EDT biovolume; version tpu-dev-v1)",
     )
     pipeline_parser.add_argument(
         "--device", default="cuda",
         help="cuda (default; fails without a card) or cpu",
+    )
+
+    # watch (continuous monitoring daemon)
+    watch_parser = subparsers.add_parser(
+        "watch",
+        description="Poll a raw directory and process new IFCB samples as "
+        "they arrive (fused probabilities + features)",
+    )
+    watch_parser.set_defaults(func=_watch)
+    watch_parser.add_argument(
+        "-r", "--raw", required=True, metavar="DIR",
+        help="Root directory of raw IFCB data",
+    )
+    watch_parser.add_argument("-m", "--model", required=True,
+                              help="Model directory")
+    watch_parser.add_argument("-o", "--out", required=True,
+                              help="Probability output directory")
+    watch_parser.add_argument(
+        "--feat-out", metavar="DIR",
+        help="Feature output directory (defaults to --out)",
+    )
+    watch_parser.add_argument(
+        "-b", "--batch-size", type=int, default=256, metavar="INT",
+        help="Default is 256",
+    )
+    watch_parser.add_argument(
+        "-i", "--interval", type=float, default=30.0, metavar="SECONDS",
+        help="Poll interval, default 30 s",
+    )
+    watch_parser.add_argument(
+        "--settle", type=float, default=60.0, metavar="SECONDS",
+        help="Process a sample only after its .roi has been idle this long",
+    )
+    watch_parser.add_argument(
+        "--device", default="cuda",
+        help="cuda (default; fails without a card) or cpu",
+    )
+
+    export_parser = subparsers.add_parser(
+        "export",
+        description="Export a trained model dir's checkpoint to a "
+        "reference-loadable best_state.pth (torch state dict)",
+    )
+    export_parser.set_defaults(func=_export)
+    export_parser.add_argument("model", help="Model directory")
+    export_parser.add_argument(
+        "-o", "--out", metavar="FILE",
+        help="Output .pth path (default: <model>/best_state.pth)",
     )
 
     args = parser.parse_args(argv)
@@ -190,10 +279,28 @@ def _prob(args):
     probability.call(args)
 
 
+def _feat(args):
+    from .compute import feature
+
+    return feature.call(args)
+
+
 def _pipeline(args):
     from .compute import pipeline
 
     return pipeline.call(args)
+
+
+def _watch(args):
+    from .compute import watch
+
+    watch.call(args)
+
+
+def _export(args):
+    from .models import export
+
+    print(f"Wrote {export.export(args.model, args.out)}")
 
 
 if __name__ == "__main__":

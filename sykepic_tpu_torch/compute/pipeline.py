@@ -2,39 +2,43 @@
 ``.prob.csv`` and a ``.feat.csv`` per sample (the port of
 ``sykepic_tpu/compute/pipeline.py``).
 
-Each sample is decoded once on the host; its ROIs are slot-packed (no
-pre-shrink), each canvas goes to the device once, and two programs run on
-that one copy: the classifier (K1 + the network) and the geometry feature
-program (:mod:`sykepic_tpu_torch.ops.features_device`, whose floods are K2).
-Features carry ``# version=tpu-dev-v1``, as the JAX package's on-device
-features do.
+Each sample is decoded once on the host. Two modes:
 
-The JAX package's other mode, host-thread features beside device
-classification (``device_features=False``), needs the host feature
-extractor; it comes with the ``feat`` sub-command (ROADMAP Queue 1 item 12)
-and raises ``NotImplementedError`` here.
+- host-thread features (the default, ``device_features=False``): the
+  sample's ROIs stream through the classifier on the device (K1 + the
+  network) while a pool of ``feature_threads`` host threads computes the
+  geometry features of the same decode
+  (:func:`sykepic_tpu_torch.compute.features.compute_features`, numpy and
+  scipy). Features carry ``# version=tpu-v1``, byte for byte what ``feat``
+  writes. A bounded semaphore holds the backlog of decoded samples waiting
+  for a feature thread to ``max(2 * feature_threads, 4)``. This is the mode
+  the ``watch`` daemon runs.
+- on-device features (``device_features=True``): the ROIs are slot-packed
+  (no pre-shrink), each canvas goes to the device once, and two programs
+  run on that one copy: the classifier and the geometry feature program
+  (:mod:`sykepic_tpu_torch.ops.features_device`, whose floods are K2).
+  Features carry ``# version=tpu-dev-v1``, as the JAX package's on-device
+  features do.
 
 Under a mesh (``clf`` built with ``mesh=``; the CLI under ``torchrun``)
-rank 0 reads the samples and writes the CSVs, and each rank runs both
-programs on its share of every canvas batch.
+rank 0 reads the samples, runs the feature threads and writes the CSVs,
+and each rank runs the device programs on its share of every batch.
 """
 
 from __future__ import annotations
 
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-from ..ingest import ifcb
+from ..ingest import ifcb, pack
 from ..utils import files, logger
 from . import feature_native, probability
 from .engine import Classifier
+from .features import compute_features
 from .units import biovolume_to_biomass
 
 log = logger.get_logger("pipeline")
-
-_HOST_FEATURES_LATER = (
-    "host-thread features (pipeline without --device-features) need the "
-    "host feature extractor, which comes with `feat` (ROADMAP Queue 1 item "
-    "12); pass --device-features")
 
 
 def call(args):
@@ -83,26 +87,131 @@ def main(
     feature_threads: int = 8,
     device_features: bool = False,
 ):
-    """Single pass: decode once -> classify + features on ``clf``'s device.
+    """Single pass: decode once -> classify on ``clf``'s device +
+    features, on ``feature_threads`` host threads (``# version=tpu-v1``)
+    or, with ``device_features``, on the device (``# version=tpu-dev-v1``).
 
-    Only ``device_features=True`` is ported: features are computed on the
-    device in the classification batch stream. ``feature_threads`` is
-    accepted for the JAX signature (it sizes the host-thread mode).
-
-    Returns the set of sample names fully processed (the empty set on the
-    other ranks of a mesh, which serve rank 0's dispatches).
+    Returns the set of sample names fully processed: in the host-thread
+    mode only those whose two CSVs both landed (the ``watch`` daemon
+    retries the rest). The empty set on the other ranks of a mesh, which
+    serve rank 0's dispatches.
     """
-    if not device_features:
-        raise NotImplementedError(_HOST_FEATURES_LATER)
     if clf.follower:
         clf.follow()
         return set()
+    feat_out_dir = feat_out_dir or prob_out_dir
     try:
-        return _main_device_features(
-            sample_paths, clf, prob_out_dir, feat_out_dir or prob_out_dir,
-            force)
+        if device_features:
+            return _main_device_features(
+                sample_paths, clf, prob_out_dir, feat_out_dir, force)
+        return _main_host_features(sample_paths, clf, prob_out_dir,
+                                   feat_out_dir, force, feature_threads)
     finally:
         clf.release()
+
+
+def _main_host_features(sample_paths, clf, prob_out_dir, feat_out_dir,
+                        force, feature_threads):
+    """Device classification with host-thread features beside it
+    (``sykepic_tpu/compute/pipeline.py:78-172``). Each sample goes to the
+    classifier as one columnar
+    :class:`~sykepic_tpu_torch.ingest.pack.RoiBlock`, as ``prob`` sends
+    it, and to a feature thread as its decoded ROIs."""
+    todo, prob_csvs, feat_csvs = _plan(sample_paths, prob_out_dir,
+                                       feat_out_dir, force)
+
+    results: dict[int, list] = {}  # idx -> [(roi_ids, probs) blocks]
+    expected: dict[int, int] = {}
+    names: dict[int, str] = {}
+
+    # Feature jobs hold their sample's decoded payload; bound the backlog so
+    # memory stays O(threads), not O(archive) (classification usually runs
+    # faster than host feature extraction).
+    backlog = threading.BoundedSemaphore(max(2 * feature_threads, 4))
+
+    def feature_worker(rois, volume_ml, feat_csv, name):
+        try:
+            roi_features = []
+            for roi_id, img in rois.images():
+                feats = dict(compute_features(img)[1])
+                biovol_px = feats["Biovolume"]
+                biovol_um3 = feature_native.pixels_to_um3(biovol_px)
+                roi_features.append(
+                    (
+                        roi_id, biovol_px, biovol_um3,
+                        biovolume_to_biomass(biovol_um3, volume_ml),
+                        feats["Area"], feats["MajorAxisLength"],
+                        feats["MinorAxisLength"],
+                    )
+                )
+            feature_native.features_to_csv(volume_ml, roi_features, feat_csv)
+            return name
+        except Exception:
+            # per-sample isolation, like the decode/classify side: one bad
+            # ROI must not abort the whole multi-sample run
+            log.exception(f"Feature extraction failed for {name}")
+            return None
+        finally:
+            backlog.release()
+
+    written = set()
+    with ThreadPoolExecutor(max_workers=max(feature_threads, 1),
+                            thread_name_prefix="sykepic-feat") as pool:
+        feat_futures = []
+
+        def roi_stream():
+            # lazy per-sample decode (on the engine's producer thread):
+            # memory stays bounded by the in-flight device batches plus the
+            # feature backlog
+            for idx, sample_path in todo:
+                try:
+                    rois = ifcb.read_sample(sample_path)
+                    volume_ml = ifcb.sample_volume(
+                        sample_path.with_suffix(".hdr")
+                    )
+                except ValueError:
+                    log.exception(f"Faulty raw data for {sample_path.name}")
+                    continue
+                except Exception:
+                    log.exception(f"Unexpected error for {sample_path.name}")
+                    continue
+                results.setdefault(idx, [])
+                expected[idx] = len(rois)
+                names[idx] = sample_path.name
+                backlog.acquire()
+                feat_futures.append(
+                    pool.submit(feature_worker, rois, volume_ml,
+                                feat_csvs[idx], sample_path.name)
+                )
+                yield pack.RoiBlock(
+                    sample_idx=idx, roi_ids=rois.roi_ids,
+                    heights=rois.heights, widths=rois.widths,
+                    offsets=rois.starts, base=rois.roi_data,
+                )
+
+        def flush(idx):
+            probability.probabilities_to_csv(
+                probability.sorted_rows(results.pop(idx)), clf.classes,
+                prob_csvs[idx])
+            written.add(names[idx])
+
+        flushed = set()
+        for idx in probability.completed_samples(
+                clf.classify_blocks(roi_stream()), results, expected):
+            flushed.add(idx)
+            flush(idx)
+        for idx in list(results):  # zero-ROI samples
+            if idx not in flushed:
+                flush(idx)
+        feat_done = {r for r in (f.result() for f in feat_futures) if r}
+
+    if feat_done != written:
+        log.warning("feature/probability sample mismatch: "
+                    f"{feat_done ^ written}")
+    # a sample only counts as processed when BOTH outputs landed — the watch
+    # daemon uses this set to decide what to retry next cycle (a feat-only
+    # retry re-runs the sample; the existing prob CSV is simply rewritten)
+    return written & feat_done
 
 
 def _plan(sample_paths, prob_out_dir, feat_out_dir, force):

@@ -227,7 +227,6 @@ def process_samples_batched(sample_paths, clf: Classifier, out_dir,
         todo.append(idx)
 
     results: dict[int, list] = {}  # idx -> [(roi_ids, probs) blocks]
-    counts: dict[int, int] = {}
     expected: dict[int, int] = {}
 
     def roi_stream():
@@ -259,32 +258,48 @@ def process_samples_batched(sample_paths, clf: Classifier, out_dir,
         futures = []
 
         def flush(idx):
-            parts = results[idx]
-            if parts:
-                rids = np.concatenate([p[0] for p in parts])
-                probs = np.concatenate([p[1] for p in parts])
-                order = np.argsort(rids, kind="stable")  # roi-sorted CSV
-                rows = (rids[order], probs[order])
-            else:
-                rows = (np.zeros(0, np.int64), np.zeros((0, 0)))
-            probabilities_to_csv(rows, clf.classes, csv_paths[idx])
+            probabilities_to_csv(sorted_rows(results[idx]), clf.classes,
+                                 csv_paths[idx])
             return sample_paths[idx].name
 
-        for sidx, rids, probs in clf.classify_blocks(roi_stream()):
-            for u in np.unique(sidx):
-                m = sidx == u
-                u = int(u)
-                results[u].append((rids[m], probs[m]))
-                counts[u] = counts.get(u, 0) + int(m.sum())
-                if counts[u] == expected[u]:
-                    flushed.add(u)
-                    futures.append(writer.submit(flush, u))
+        for idx in completed_samples(clf.classify_blocks(roi_stream()),
+                                     results, expected):
+            flushed.add(idx)
+            futures.append(writer.submit(flush, idx))
         # zero-ROI samples and any stragglers
         for idx in results:
             if idx not in flushed:
                 futures.append(writer.submit(flush, idx))
         written = {f.result() for f in futures}
     return written | skipped
+
+
+def completed_samples(blocks, results: dict, expected: dict):
+    """Spread :meth:`Classifier.classify_blocks`' per-batch ``blocks`` over
+    their samples (``results[idx]`` gets each ``(roi_ids, probs)`` part) and
+    yield each sample index once all ``expected[idx]`` of its ROIs are in.
+    ``results`` and ``expected`` are filled by the ROI stream as it goes."""
+    counts: dict[int, int] = {}
+    for sidx, rids, probs in blocks:
+        for u in np.unique(sidx):
+            m = sidx == u
+            u = int(u)
+            results[u].append((rids[m], probs[m]))
+            counts[u] = counts.get(u, 0) + int(m.sum())
+            if counts[u] == expected[u]:
+                yield u
+
+
+def sorted_rows(parts):
+    """``(roi_ids, probs)`` blocks of one sample -> one roi-sorted
+    ``(roi_ids (n,), probs (n, C))`` pair, the array form of
+    :func:`probabilities_to_csv`."""
+    if not parts:
+        return np.zeros(0, np.int64), np.zeros((0, 0))
+    rids = np.concatenate([p[0] for p in parts])
+    probs = np.concatenate([p[1] for p in parts])
+    order = np.argsort(rids, kind="stable")
+    return rids[order], probs[order]
 
 
 def process_images(img_paths, clf: Classifier, csv_path, force: bool = False):

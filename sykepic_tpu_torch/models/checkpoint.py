@@ -585,6 +585,22 @@ def normalize_state_dict(state_dict: dict, network: str | None = None) -> dict:
     return out
 
 
+def reference_state_dict(state_dict: dict,
+                         network: str | None = None) -> dict:
+    """The inverse of :func:`normalize_state_dict`: torchvision naming ->
+    the reference ``TorchVisionNet`` layout (``base.N.*``, ``head.K.*``
+    kept), as ``sykepic_tpu/models/convert_torch.py::flax_to_torch``
+    writes it. The family comes from ``network``, else from the keys."""
+    fam = family(network) if network else _torch_family(state_dict)
+    children = _BASE_CHILDREN.get(fam, _BASE_CHILDREN["features"])
+    base = {child: idx for idx, child in children.items()}
+    out = {}
+    for key, value in state_dict.items():
+        child, _, rest = key.partition(".")
+        out[key if child == "head" else f"base.{base[child]}.{rest}"] = value
+    return out
+
+
 def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32))  # a writable copy
 

@@ -17,7 +17,7 @@ Keeps the contracts of the JAX package:
 
 The device is ``cuda`` unless ``--device cpu`` is asked for. The side modes
 ``--save-images``, ``--dist`` and ``--collage`` are not ported yet (ROADMAP
-Queue 1 item 12) and raise ``NotImplementedError``.
+Queue 1 item 12e) and raise ``NotImplementedError``.
 
 Under a process group (torchrun, or the spawn of ``train`` on a host with
 several cards; :mod:`sykepic_tpu_torch.parallel`) every rank runs
@@ -87,7 +87,7 @@ def main(args):
         if getattr(args, mode, None):
             raise NotImplementedError(
                 f"train --{mode.replace('_', '-')} is not ported yet "
-                "(ROADMAP Queue 1 item 12)")
+                "(ROADMAP Queue 1 item 12e)")
     device = device_mod.resolve(getattr(args, "device", None))
     config = config_mod.read_config(args.config)
 

@@ -1,7 +1,9 @@
 """The port stands alone: ``sykepic_tpu_torch`` imports with JAX, flax,
-optax, the JAX package, cv2 and scikit-learn blocked (the port depends on
-none of them), no source of it names them, and its entry points never
-carry on quietly on the CPU when a card was asked for."""
+optax, the JAX package, cv2, scikit-learn and pandas blocked (the port
+depends on none of them; the card machine has no pandas), no source of it
+names the first six, pandas and matplotlib are imported only inside the
+functions that need them, and its entry points never carry on quietly on
+the CPU when a card was asked for."""
 
 import ast
 import subprocess
@@ -13,7 +15,10 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "sykepic_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "sykepic_tpu", "cv2", "sklearn")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "sykepic_tpu", "cv2", "sklearn",
+           "pandas")
+# optional on the card machine: imported inside the functions needing them
+LAZY = ("pandas", "matplotlib")
 
 
 @pytest.fixture(autouse=True)
@@ -53,7 +58,12 @@ def test_imports_with_jax_blocked():
                 "sykepic_tpu_torch.train.device_data",
                 "sykepic_tpu_torch.parallel",
                 "sykepic_tpu_torch.parallel.launch",
-                "sykepic_tpu_torch.parallel.dryrun"):
+                "sykepic_tpu_torch.parallel.dryrun",
+                "sykepic_tpu_torch.compute.features",
+                "sykepic_tpu_torch.compute.feature",
+                "sykepic_tpu_torch.compute.feature_matlab",
+                "sykepic_tpu_torch.compute.watch",
+                "sykepic_tpu_torch.models.export"):
         assert new in names
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKER, *names], cwd=REPO,
@@ -79,8 +89,33 @@ def _imported_roots(path: Path):
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_sources_name_no_jax(path):
-    named = sorted(set(_imported_roots(path)) & set(BLOCKED))
+    named = sorted(set(_imported_roots(path)) & (set(BLOCKED) - set(LAZY)))
     assert not named, f"{path} imports {named}"
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_optional_packages_imported_lazily(path):
+    """pandas and matplotlib only inside a function: no statement of the
+    module's top level (nor of a class body, an ``if`` or a ``try`` there)
+    imports them."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    stack, top = list(tree.body), []
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            top.append(node)
+        stack.extend(ast.iter_child_nodes(node))
+    roots = {alias.name.split(".")[0] for n in top if isinstance(n, ast.Import)
+             for alias in n.names}
+    roots |= {n.module.split(".")[0] for n in top
+              if isinstance(n, ast.ImportFrom) and n.level == 0}
+    assert not roots & set(LAZY), f"{path} imports {sorted(roots & set(LAZY))}"
 
 
 def test_cuda_without_card_raises(model_dir):

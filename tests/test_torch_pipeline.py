@@ -155,9 +155,15 @@ def test_rerun_skips_unless_forced(raw_dir, model_dir, tmp_path):
 
 
 def test_host_thread_mode_names_its_item(raw_dir, model_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        main(["pipeline", "-r", str(raw_dir), "-m", str(model_dir), "-o",
-              str(tmp_path), "--device", "cpu"])
+    """Without ``--device-features`` the host-thread mode runs (held
+    against JAX in ``tests/test_torch_pipeline_host.py``): host features
+    under their own version line."""
+    assert len(main(["pipeline", "-r", str(raw_dir), "-m", str(model_dir),
+                     "-o", str(tmp_path), "--device", "cpu"])) == 2
+    feats = _csvs(tmp_path, ".feat")
+    assert len(feats) == 2
+    for path in feats.values():
+        assert path.read_text().startswith("# version=tpu-v1\n")
 
 
 def test_cuda_flag_without_card_raises(raw_dir, model_dir, tmp_path):
