@@ -21,9 +21,14 @@ Phases, one JSON object per line on stdout:
    dispatch, slot canvases of 64x128 and one of 512x512), in float32
    (max |diff| <= 1e-3/255) and bfloat16 (within one bf16 ulp of the plain
    version cast to bf16). Kernel ms are the median of 20 launches timed
-   with CUDA events, beside the plain version's ms and the least time the
-   card could take (bytes over the memory rate, operations over the float32
-   rate).
+   with CUDA events, beside the device ms (torch.profiler, per kernel it
+   recorded of 20 launches), the loop ms (20 back-to-back calls between two
+   events), the host us a call (100 calls without a synchronisation between
+   them), the plain version's ms, the least time the card could take
+   (bytes over the memory rate, operations over the float32 rate), the
+   share of it by device ms, the copy floor (``out.copy_`` from an equal
+   tensor, back to back: the card's practical rate for the output's bytes)
+   and the store path the launch plan took (``bulk`` or ``vector``).
 3. ``prob``: a full-width ResNet18 model dir (the repo's config, seeded
    random weights saved as a reference-layout ``best_state.pth``) and a
    workload of the fixture sample plus 20,000 synthetic ROIs in
@@ -90,14 +95,16 @@ Phases, one JSON object per line on stdout:
 9. ``kernel_resize_pad_train``: K1's train form against its plain version
    on 2,048 slots of the largest store of that run: random affines with
    both flips, zoom 0.6 and 1.4, translations at -limit and +limit, in
-   float32 with brightness on and off (max |diff| <= 1e-3/255) and in
-   bfloat16 with brightness on (within one bf16 ulp of the plain version
-   cast to bf16; the store ``[train] dtype = bfloat16`` writes); ms by events
-   (one call each), device ms (torch.profiler, per kernel it recorded of
-   20 launches), loop ms (20 back-to-back calls between two events, with
-   a new output each and into one preallocated output), plain ms and the
-   byte bound (uint8 reads, the slot inputs and
-   the NHWC writes, 4 or 2 bytes an element, at 3.35 TB/s).
+   float32 (``bright_on``, ``bright_off``; max |diff| <= 1e-3/255) and in
+   bfloat16 (``bright_on_bf16``, ``bright_off_bf16``; within one bf16 ulp of
+   the plain version cast to bf16; the store ``[train] dtype = bfloat16``
+   writes), each with brightness (the kernel's level table) on and off; ms
+   by events (one call each), device ms (torch.profiler, per kernel it
+   recorded of 20 launches), loop ms (20 back-to-back calls between two
+   events, with a new output each and into one preallocated output), host
+   us a call, plain ms, the byte bound (uint8 reads, the slot inputs and the NHWC writes, 4
+   or 2 bytes an element, at 3.35 TB/s), the share of it by device ms and
+   the copy floor of the output.
 10. ``train_step_card_vs_cpu``: one float32 train step (no augmentation, no
    dropout) of the full-width model on 32 images of the set, on the card
    and on the CPU from the same weights: loss within 1e-4 relative, the
@@ -159,7 +166,8 @@ Phases, one JSON object per line on stdout:
    exactly as the msgpack directory does (max |dp| 0.0).
 
 Then the ``kernels`` line (K1's eval form, with its launches on every
-path, K1's train form, with its bfloat16 case, and K2), the
+path and its bfloat16 case, K1's train form, with its bfloat16 case, and
+K2), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a card, or outside a checkout, the script exits non-zero at once.
@@ -203,6 +211,9 @@ INT32_OPS_PER_S = 16.7e12
 # so the bound is the same for every form.
 K2_OPS_PER_WORD = 12
 HOST_CALLS = 100  # back-to-back calls whose wall time gives host us a call
+# what the kernels line keeps of a K1 case's bfloat16 run
+K1_LINE_KEYS = ("max_abs_err", "ms", "device_ms", "loop_ms", "share_of_bound",
+                "copy_floor_ms", "plain_ms", "bound_ms", "bound_by")
 
 N_ROIS = 20_000
 PER_SAMPLE = 500
@@ -446,6 +457,30 @@ def profiled_kernels(fn, word: str, reps: int) -> tuple[float, int]:
                 else e.duration_us() / 1e3 for e in hits), len(hits))
 
 
+def copy_floor_ms(out: torch.Tensor) -> float:
+    """The card's practical write rate for ``out``'s bytes: back-to-back
+    ``out.copy_(other)`` from an equal tensor (reads and writes as many
+    bytes again; beside the datasheet bound, not instead of it)."""
+    other = torch.zeros_like(out)
+    return loop_ms(lambda: out.copy_(other), TIMED_LAUNCHES)
+
+
+def k1_timings(call, got: torch.Tensor, bound_ms: float) -> dict:
+    """K1's times for one call: the median of single calls by events, the
+    device time of a recorded kernel (torch.profiler, per kernel it
+    recorded), back to back, the host time of a call (``host_us``), the
+    share of the bound by device time, and the copy floor of its output."""
+    prof_ms, recorded = profiled_kernels(call, "resize_pad", TIMED_LAUNCHES)
+    device_ms = prof_ms / recorded if recorded else None
+    return {"ms": time_ms(call, TIMED_LAUNCHES),
+            "device_ms": device_ms,
+            "device_kernels_recorded": recorded,
+            "loop_ms": loop_ms(call, TIMED_LAUNCHES),
+            "host_us": host_us(call),
+            "share_of_bound": bound_ms / device_ms if device_ms else None,
+            "copy_floor_ms": copy_floor_ms(got)}
+
+
 def k1_case(name, pixels: np.ndarray, meta: np.ndarray, target=180) -> dict:
     """K1 against its plain version on one input, both dtypes."""
     from sykepic_tpu_torch.ops import preprocess, resize_pad
@@ -478,13 +513,16 @@ def k1_case(name, pixels: np.ndarray, meta: np.ndarray, target=180) -> dict:
         written = got.numel() * got.element_size()
         bytes_s = (read + written) / MEMORY_BYTES_PER_S
         ops_s = inside * 3 * K1_OPS_PER_PIXEL / F32_OPS_PER_S
+        bound_ms = 1e3 * max(bytes_s, ops_s)
         out[tag] = {
             "max_abs_err": float(err.max()),
-            "ms": time_ms(lambda: resize_pad.resize_pad(
-                pix, m, target, target, 3, dtype), TIMED_LAUNCHES),
+            "store": resize_pad.plan(target, target, 3, dtype,
+                                     got.data_ptr()).store,
+            **k1_timings(lambda: resize_pad.resize_pad(
+                pix, m, target, target, 3, dtype), got, bound_ms),
             "plain_ms": time_ms(lambda: preprocess.resize_pad_plain(
                 pix, m, target, target, 3, dtype), TIMED_PLAIN),
-            "bound_ms": 1e3 * max(bytes_s, ops_s),
+            "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
             "bytes": read + written,
         }
@@ -493,18 +531,26 @@ def k1_case(name, pixels: np.ndarray, meta: np.ndarray, target=180) -> dict:
     return out
 
 
-def phase_kernel(model_dir: Path, samples) -> dict:
-    """K1 at the main path's shapes; returns the main-path case."""
+def first_shelf_dispatch(model_dir: Path, samples):
+    """The uint8 windows and slot metadata of ``prob``'s first shelf
+    dispatch of ``samples``."""
     from sykepic_tpu_torch.compute.engine import Classifier
     from sykepic_tpu_torch.ingest import shelf
-    from sykepic_tpu_torch.ops import preprocess
 
     clf = Classifier(model_dir, batch_size=BATCH)  # host metadata only
     first = next(shelf.pack_shelves(
         sample_blocks(samples), pre_shrink_to=(180, 180), compute_modes=True,
         slot_cap=clf._shelf_slot_cap))
-    main_case = k1_case("shelf_first_dispatch", first.windows,
-                        clf._shelf_meta(first))
+    return first.windows, clf._shelf_meta(first)
+
+
+def phase_kernel(model_dir: Path, samples) -> dict:
+    """K1 at the main path's shapes; returns the main-path case."""
+    from sykepic_tpu_torch.ingest import shelf
+    from sykepic_tpu_torch.ops import preprocess
+
+    main_case = k1_case("shelf_first_dispatch",
+                        *first_shelf_dispatch(model_dir, samples))
 
     rng = np.random.default_rng(1)
     images = fixture_images()
@@ -1444,23 +1490,25 @@ def phase_train(smi: str) -> dict:
             "dataset": dataset, "model_dir": model_dir, "step_k1": step_k1}
 
 
-def phase_kernel_train(run: dict) -> dict:
-    """K1's train form against its plain version on ``TRAIN_SLOTS`` slots
-    of the largest store of the training run (rows of its last epoch,
-    repeated): float32 with brightness on and off, and bfloat16 with it on;
-    returns the cases by name."""
-    from sykepic_tpu_torch.ops import augment, preprocess, resize_pad
+def train_form_inputs(stores, idxs, slots: int = 2048, seed: int = 9):
+    """K1 train-form inputs on ``slots`` slots of the largest of
+    ``stores`` (its rows in ``idxs``, repeated): random affines with both
+    flips, zoom 0.6 and 1.4, translations at -limit and +limit, and
+    brightness in [0.95, 1.1]. Returns the store's pixels, the slots'
+    metadata, affine and brightness, the bytes a call must read (each
+    stored ROI the slots read, once, and the slots' own inputs) and the
+    pixels inside the slots' resized ROIs."""
+    from sykepic_tpu_torch.ops import augment
 
-    stores, idxs = run["args"][0], run["args"][1]
     k = max(range(len(stores)), key=lambda i: stores[i]["canvas"][0].numel())
     store = stores[k]
     rows = np.unique(idxs[k])
-    rng = np.random.default_rng(9)
-    idx = torch.from_numpy(rng.choice(rows, TRAIN_SLOTS)).to(
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(rng.choice(rows, slots)).to(
         store["canvas"].device)
     meta = store["meta"].index_select(1, idx).contiguous()
     lim = store["lim"].index_select(1, idx).float()
-    r = TRAIN_SLOTS
+    r = slots
     dev = meta.device
 
     def sign():
@@ -1474,20 +1522,37 @@ def phase_kernel_train(run: dict) -> dict:
         torch.from_numpy(rng.choice([0.6, 1.4], r).astype(np.float32)).to(dev),
         torch.from_numpy(rng.uniform(0.95, 1.1, r).astype(np.float32)).to(dev))
     affine = augment.affine_rows(draws, 180, 180)
-    pix = store["canvas"]
     m = meta.cpu().numpy().astype(np.int64)
-    # each stored ROI the slots read, once, and the slots' own inputs
     _, first = np.unique(m[0], return_index=True)
     read = int((m[3][first] * m[4][first]).sum()) + meta.nbytes + \
         affine.nbytes
-    inside = int((m[5] * m[6]).sum())
+    return {"pixels": store["canvas"], "meta": meta, "affine": affine,
+            "bright": draws.bright, "read": read,
+            "inside": int((m[5] * m[6]).sum())}
+
+
+# K1's train-form cases: float32 and bfloat16 (what training stores under
+# [train] dtype = bfloat16), brightness (the level table) on and off
+TRAIN_FORM_CASES = (("bright_on", True, torch.float32),
+                    ("bright_off", False, torch.float32),
+                    ("bright_on_bf16", True, torch.bfloat16),
+                    ("bright_off_bf16", False, torch.bfloat16))
+
+
+def phase_kernel_train(run: dict) -> dict:
+    """K1's train form against its plain version on ``TRAIN_SLOTS`` slots
+    of the largest store of the training run (rows of its last epoch,
+    repeated): float32 and bfloat16, each with brightness on and off;
+    returns the cases by name."""
+    from sykepic_tpu_torch.ops import preprocess, resize_pad
+
+    inp = train_form_inputs(run["args"][0], run["args"][1], TRAIN_SLOTS)
+    pix, meta, affine = inp["pixels"], inp["meta"], inp["affine"]
+    r = TRAIN_SLOTS
     cases = {}
-    # float32 with brightness on and off, and bfloat16 (what training
-    # stores under [train] dtype = bfloat16) with it on
-    for tag, bright, dtype in (
-            ("bright_on", draws.bright, torch.float32),
-            ("bright_off", None, torch.float32),
-            ("bright_on_bf16", draws.bright, torch.bfloat16)):
+    for tag, on, dtype in TRAIN_FORM_CASES:
+        bright = inp["bright"] if on else None
+
         def call(out=None, bright=bright, dtype=dtype):
             return resize_pad.resize_pad(pix, meta, 180, 180, 3, dtype,
                                          affine=affine, bright=bright,
@@ -1515,22 +1580,18 @@ def phase_kernel_train(run: dict) -> dict:
                   f"K1 train form {tag}: beyond one bf16 ulp")
         out = torch.empty_like(got)
         written = got.numel() * got.element_size()
-        nbytes = read + written + (0 if bright is None else bright.nbytes)
-        # per kernel the profiler recorded: a session may drop records
-        prof_ms, recorded = profiled_kernels(call, "resize_pad",
-                                             TIMED_LAUNCHES)
+        nbytes = inp["read"] + written + (
+            0 if bright is None else bright.nbytes)
         bytes_s = nbytes / MEMORY_BYTES_PER_S
-        ops_s = inside * 3 * K1_OPS_PER_PIXEL / F32_OPS_PER_S
+        ops_s = inp["inside"] * 3 * K1_OPS_PER_PIXEL / F32_OPS_PER_S
+        bound_ms = 1e3 * max(bytes_s, ops_s)
         cases[tag] = {
             "max_abs_err": err,
-            "ms": time_ms(call, TIMED_LAUNCHES),
-            "device_ms": prof_ms / recorded if recorded else None,
-            "device_kernels_recorded": recorded,
-            "loop_ms": loop_ms(call, TIMED_LAUNCHES),
+            **k1_timings(call, got, bound_ms),
             # back to back into one preallocated output: no allocation
             "loop_ms_out": loop_ms(lambda: call(out), TIMED_LAUNCHES),
             "plain_ms": time_ms(plain, TIMED_PLAIN),
-            "bound_ms": 1e3 * max(bytes_s, ops_s),
+            "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
             "bytes": nbytes}
     emit({"phase": "kernel_resize_pad_train", "slots": r,
@@ -2330,10 +2391,17 @@ def main() -> int:
         "watch_launches": watch_launches,
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
+        "device_ms": k["device_ms"],
+        "loop_ms": k["loop_ms"],
+        "share_of_bound": k["share_of_bound"],
+        "copy_floor_ms": k["copy_floor_ms"],
         "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
         "library_ms": None,
+        # the same dispatch stored in bfloat16 (prob's bf16 mode);
+        # max_abs_err against the plain version cast to bf16
+        "bf16": {key: main_case["bf16"][key] for key in K1_LINE_KEYS},
     }, {
         # K1's train form: launches over the train run (one per bucket and
         # step); times on 2,048 slots of its largest store, brightness on
@@ -2351,6 +2419,8 @@ def main() -> int:
         "ms": k1_train["ms"],
         "device_ms": k1_train["device_ms"],
         "loop_ms": k1_train["loop_ms"],
+        "share_of_bound": k1_train["share_of_bound"],
+        "copy_floor_ms": k1_train["copy_floor_ms"],
         "plain_ms": k1_train["plain_ms"],
         "bound_ms": k1_train["bound_ms"],
         "bound_by": k1_train["bound_by"],
@@ -2358,9 +2428,7 @@ def main() -> int:
         # the same 2,048 slots stored in bfloat16, as [train] dtype =
         # bfloat16 stores them; max_abs_err against the plain version cast
         # to bf16 (within one bf16 ulp, checked)
-        "bf16": {k: k1_bf16[k] for k in (
-            "max_abs_err", "ms", "device_ms", "loop_ms", "plain_ms",
-            "bound_ms", "bound_by")},
+        "bf16": {key: k1_bf16[key] for key in K1_LINE_KEYS},
     }, {
         # ms, plain_ms and bound_ms: the seven floods of the first fused
         # dispatch, summed; launches: every form in the fused run

@@ -16,12 +16,18 @@ augmentations and the ImageNet normalisation into the same launch; see
 (:func:`sykepic_tpu_torch.ops.preprocess.resize_pad_plain`) only for tensors
 on the CPU; for CUDA tensors it launches the kernel or raises. ``launches``
 counts eval-form launches and ``train_launches`` train-form launches (never
-twin calls), so a run can show that its path went through the kernel.
+twin calls), so a run can show that its path went through the kernel;
+``vector_launches`` counts the launches of either form whose output took the
+vector store path instead of TMA bulk stores. :func:`plan` decides each
+launch's tile rows, threads, store path and shared memory.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -30,11 +36,96 @@ from .preprocess import META_ROWS, resize_pad_plain
 
 launches = 0
 train_launches = 0
+vector_launches = 0  # launches of either form that took the vector store
 
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 _MAX_TARGET_W = 2048  # per-column taps live in the kernel's shared memory
 _MAX_NORM_CHANS = 8  # per-channel mean/std live in the kernel's shared memory
+# dynamic shared memory one block may take on an H100 (227 KB)
+_SMEM_LIMIT = 232_448
+_STAGE_BYTES = 16_384  # output bytes a staging buffer aims to hold
+_MAX_THREADS = 256  # a block's threads
+_MAX_LANES = 4  # threads that share a column group, on interleaved rows
+_GROUP = 4  # adjacent output columns a thread makes (csrc/resize_pad.cu kG)
+_TAPS_BYTES = 16  # one row's or column's taps (csrc/resize_pad.cu::Taps)
+_LEVELS = 256  # brightness levels after the floor: the level table's rows
+STORES = {"bulk": 0, "vector": 1}
 _fn = None
+
+
+class Plan(NamedTuple):
+    """How one launch of the kernel runs (``csrc/resize_pad.cu``)."""
+
+    tile_rows: int  # output rows a staged tile holds
+    lanes: int  # threads a column group, each taking every lanes-th row
+    threads: int  # a block's threads: lanes x the threads across groups
+    store: str  # "bulk" (TMA bulk stores) or "vector" (16-byte stores)
+    stage_bytes: int  # one of the two staging buffers
+    smem_bytes: int  # all the block's dynamic shared memory
+
+
+def plan(target_h: int, target_w: int, num_chans: int, dtype,
+         out_ptr: int = 0, bright: bool = False, norm: bool = False) -> Plan:
+    """The launch plan for an output ``(R, target_h, target_w, num_chans)``
+    in ``dtype`` at address ``out_ptr``, with brightness (the level table)
+    and normalisation or without.
+
+    A tile's span is a TMA bulk store where every span starts on 16 bytes
+    and holds a multiple of 16 (an aligned ``out``, ``target_h`` rows of a
+    slot a multiple of 16 bytes, and tile rows chosen so); else the vector
+    path (also where the fewest rows a bulk tile can take do not fit the
+    shared-memory budget). Tile rows fill about ``_STAGE_BYTES`` a buffer,
+    fewer where the budget needs it; raises for an output the budget cannot
+    take. Plans are kept: ``out_ptr`` counts only by its alignment."""
+    return _plan(target_h, target_w, num_chans, dtype, out_ptr % 16 == 0,
+                 bool(bright), bool(norm))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(target_h, target_w, num_chans, dtype, out_aligned, bright,
+          norm) -> Plan:
+    if dtype not in _OUT_DTYPES:
+        raise ValueError(f"unsupported output dtype {dtype}")
+    if not (0 < target_w <= _MAX_TARGET_W and 0 < target_h and num_chans > 0):
+        raise ValueError(f"unsupported target {target_h}x{target_w}x"
+                         f"{num_chans}")
+    elem = _ELEM_BYTES[dtype]
+    row = target_w * num_chans * elem
+    aligned = out_aligned and target_h * row % 16 == 0
+    # a thread makes _GROUP adjacent columns of `lanes` interleaved rows
+    groups = -(-target_w // _GROUP)
+    across = min(groups, _MAX_THREADS)
+    lanes = max(1, min(_MAX_LANES, _MAX_THREADS // across))
+    fixed = (_TAPS_BYTES * (groups * _GROUP + target_h)
+             + 2 * _MAX_NORM_CHANS * 4
+             + (_LEVELS * (num_chans if norm else 1) * elem if bright else 0))
+
+    def fit(path):
+        # bulk: tile rows whose bytes are a multiple of 16; the vector path
+        # stages a span at its address's offset mod 16. Rows a multiple of
+        # the lanes where the budget allows.
+        step = 16 // math.gcd(row, 16) if path == "bulk" else 1
+        unit = step * lanes // math.gcd(step, lanes)
+        rows = max(unit, round(_STAGE_BYTES / row / unit) * unit)
+        rows = min(rows, -(-target_h // unit) * unit)
+        while True:
+            stage = (rows * row if path == "bulk"
+                     else -(-(rows * row + 16) // 16) * 16)
+            total = 2 * stage + fixed
+            if total <= _SMEM_LIMIT or rows <= step:
+                return rows, stage, total
+            rows -= step
+
+    store = "bulk" if aligned else "vector"
+    if store == "bulk" and fit("bulk")[2] > _SMEM_LIMIT:
+        store = "vector"  # the fewest rows a bulk tile takes do not fit
+    rows, stage, total = fit(store)
+    if total > _SMEM_LIMIT:
+        raise ValueError(f"an output of {target_h}x{target_w}x{num_chans} "
+                         f"{dtype} needs {total} bytes of shared memory, "
+                         f"more than the {_SMEM_LIMIT} a block may take")
+    return Plan(rows, lanes, lanes * across, store, stage, total)
 
 
 def _kernel():
@@ -45,7 +136,7 @@ def _kernel():
         i = ctypes.c_int
         p = ctypes.c_void_p
         fn.argtypes = [p, i, i, i, p, i, i, i, i, i, ctypes.c_float, p, p,
-                       p, p, p, p]
+                       p, p, p, i, i, i, i, i, i, p]
         _fn = fn
     return _fn
 
@@ -77,8 +168,9 @@ def resize_pad(pixels: torch.Tensor, meta: torch.Tensor, target_h: int,
     applies brightness, clip and floor on the 0-255 scale; ``mean``/``std``
     float32 ``(num_chans,)`` normalise after the division by 255. ``out``,
     when given, is the contiguous ``(R, target_h, target_w, num_chans)``
-    tensor to write (a slice of a larger batch)."""
-    global launches, train_launches
+    tensor to write (a slice of a larger batch); its alignment picks the
+    kernel's store path (:func:`plan`)."""
+    global launches, train_launches, vector_launches
     train = affine is not None or bright is not None or mean is not None
     if (mean is None) != (std is None):
         raise ValueError("mean and std go together")
@@ -112,6 +204,8 @@ def resize_pad(pixels: torch.Tensor, meta: torch.Tensor, target_h: int,
     n_slots = meta.shape[1]
     if n_win == 0 and n_slots:
         raise ValueError("slots reference an empty pixel tensor")
+    if win_h * win_w >= 2 ** 31:
+        raise ValueError("a pixel plane must hold fewer than 2**31 bytes")
     dev = pixels.device
     affine = _f32_input("affine", affine, (4, n_slots), dev)
     bright = _f32_input("bright", bright, (n_slots,), dev)
@@ -130,6 +224,8 @@ def resize_pad(pixels: torch.Tensor, meta: torch.Tensor, target_h: int,
                          f"{out.device}")
     if n_slots == 0:
         return out
+    pl = plan(target_h, target_w, num_chans, dtype, out.data_ptr(),
+              bright=bright is not None, norm=mean is not None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -140,11 +236,15 @@ def resize_pad(pixels: torch.Tensor, meta: torch.Tensor, target_h: int,
             target_h, target_w, num_chans, _OUT_DTYPES[dtype],
             1.0 if raw else 255.0, ptr(affine),
             ptr(bright), ptr(mean), ptr(std), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            pl.tile_rows, pl.lanes, pl.threads, STORES[pl.store],
+            pl.stage_bytes,
+            pl.smem_bytes, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"resize_pad kernel launch failed: CUDA error {err}")
     if train:
         train_launches += 1
     else:
         launches += 1
+    if pl.store == "vector":
+        vector_launches += 1
     return out

@@ -7,18 +7,18 @@ without JAX::
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
-Tolerances: K1 in float32 within 1e-3/255 of the plain version (the kernel
-repeats its float steps one by one, so in practice they agree exactly), in
-bfloat16 within one bf16 ulp of the plain version cast to bf16, on the 0-255
-scale (``raw``) within 1e-3; K2 exact (bool masks, and the same step count
-per image), in each of its three forms. The other model families: the eval
-forward on the card (float32, TF32 off) against the CPU within ``rtol=1e-4,
-atol=1e-5`` of the logits; a train step with the rotation warp on the card.
-Multi-GPU at world size 1 (a NCCL group over the one card): a data-parallel
-mixed train step equals the step without a group (cuDNN deterministic;
-loss within 1e-5 relative), and ``prob`` through ``Classifier(mesh=)``
-equals the run without a mesh (within 1.2e-5, the same ids), K1 launched
-on both.
+Tolerances: K1 exact (max |diff| 0.0) against its plain version run on the
+same card, in every form, dtype, target shape, channel count and store path
+(the kernel repeats the plain version's float steps one by one, and the
+level table runs the same steps once a level); K2 exact (bool masks, and the
+same step count per image), in each of its three forms. The other model
+families: the eval forward on the card (float32, TF32 off) against the CPU
+within ``rtol=1e-4, atol=1e-5`` of the logits; a train step with the
+rotation warp on the card. Multi-GPU at world size 1 (a NCCL group over the
+one card): a data-parallel mixed train step equals the step without a group
+(cuDNN deterministic; loss within 1e-5 relative), and ``prob`` through
+``Classifier(mesh=)`` equals the run without a mesh (within 1.2e-5, the same
+ids), K1 launched on both.
 """
 
 import numpy as np
@@ -28,9 +28,6 @@ import torch
 from sykepic_tpu_torch.ingest import pack
 from sykepic_tpu_torch.ops import augment, flood, preprocess, resize_pad
 
-ATOL = 1e-3 / 255
-
-
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -38,46 +35,63 @@ def cuda():
     return torch.device("cuda")
 
 
-def _slots(rng, b=32, ch=64, cw=128):
+def _slots(rng, b=32, ch=64, cw=128, target=(180, 180)):
     hs = rng.integers(1, ch + 1, b)
     ws = rng.integers(1, cw + 1, b)
     canvas = rng.integers(0, 256, (b, ch, cw), dtype=np.uint8)
-    geom = preprocess.compute_geometry(hs, ws, 180, 180)
+    geom = preprocess.compute_geometry(hs, ws, *target)
     border = rng.integers(0, 256, b)
     return canvas, preprocess.slot_meta(hs, ws, *geom, border)
 
 
-def _shelf(rng, nc=4, r=300):
+def _shelf(rng, nc=4, r=300, target=(180, 180)):
     wins = rng.integers(0, 256, (nc, 192, 512), dtype=np.uint8)
     hs = rng.integers(1, 181, r)
     ws = rng.integers(1, 181, r)
     y0 = (rng.random(r) * (192 - hs)).astype(np.int32)
     x0 = (rng.random(r) * (512 - ws)).astype(np.int32)
-    geom = preprocess.compute_geometry(hs, ws, 180, 180)
+    geom = preprocess.compute_geometry(hs, ws, *target)
     border = rng.integers(0, 256, r)
     return wins, preprocess.slot_meta(hs, ws, *geom, border,
                                       rng.integers(0, nc, r), y0, x0)
 
 
+def _one_slot(rng, target=(180, 180)):
+    return _slots(rng, b=1, target=target)
+
+
+def _shelf_2048(rng, target=(180, 180)):
+    return _shelf(rng, nc=16, r=2048, target=target)
+
+
+def _assert_exact(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    err = float((got.float() - want.float()).abs().max())
+    assert err == 0.0, f"max |diff| {err}"
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("make", [_slots, _shelf])
+@pytest.mark.parametrize("make,target,chans", [
+    (_slots, (180, 180), 3), (_shelf, (180, 180), 3),
+    (_one_slot, (180, 180), 3), (_shelf_2048, (180, 180), 3),
+    # odd widths (an odd row span: the vector store), a partial last tile
+    (_slots, (180, 179), 3), (_shelf, (97, 33), 3), (_slots, (181, 180), 3),
+    (_slots, (180, 180), 1), (_shelf, (97, 33), 1),
+    (_slots, (180, 180), 8), (_shelf, (180, 179), 8),
+])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain_version(cuda, make, dtype):
-    pixels, meta = make(np.random.default_rng(0))
+def test_kernel_matches_plain_version(cuda, make, target, chans, dtype):
+    pixels, meta = make(np.random.default_rng(0), target=target)
     pix = torch.from_numpy(pixels).to(cuda)
     m = torch.from_numpy(meta).to(cuda)
+    th, tw = target
     before = resize_pad.launches
-    out = resize_pad.resize_pad(pix, m, 180, 180, 3, dtype)
+    out = resize_pad.resize_pad(pix, m, th, tw, chans, dtype)
     torch.cuda.synchronize()
     assert resize_pad.launches == before + 1
-    assert out.shape == (meta.shape[1], 180, 180, 3) and out.dtype == dtype
-    plain = preprocess.resize_pad_plain(torch.from_numpy(pixels),
-                                        torch.from_numpy(meta), 180, 180, 3)
-    err = (out.cpu().float() - plain.to(dtype).float()).abs()
-    if dtype == torch.float32:
-        assert err.max().item() <= ATOL
-    else:
-        assert bool((err <= plain.to(dtype).float().abs() * 2.0 ** -7).all())
+    assert out.shape == (meta.shape[1], th, tw, chans) and out.dtype == dtype
+    _assert_exact(out, preprocess.resize_pad_plain(pix, m, th, tw, chans,
+                                                   dtype))
 
 
 @pytest.mark.gpu
@@ -307,30 +321,31 @@ _NORM = (torch.tensor(preprocess.IMAGENET_MEAN),
 @pytest.mark.parametrize("bucket", [b for b in pack.DEFAULT_BUCKETS
                                     if b[0] <= 192 and b[1] <= 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bright,norm", [(True, False), (False, True),
-                                         (True, True)])
-def test_train_form_matches_plain_version(cuda, bucket, dtype, bright, norm):
+# brightness (the level table) with and without mean/std, and mean/std
+# alone; eight channels take an eight-entry level of the table
+@pytest.mark.parametrize("bright,norm,chans", [
+    (True, False, 3), (False, True, 3), (True, True, 3), (True, True, 8)])
+def test_train_form_matches_plain_version(cuda, bucket, dtype, bright, norm,
+                                          chans):
     canvas, meta, affine, br = _train_inputs(
         np.random.default_rng(bucket[0] * bucket[1]), bucket)
+    mean, std = _NORM
+    if chans != 3:
+        g = np.random.default_rng(chans)
+        mean = torch.from_numpy(g.uniform(0.3, 0.6, chans).astype(np.float32))
+        std = torch.from_numpy(g.uniform(0.2, 0.3, chans).astype(np.float32))
     kw = dict(affine=affine, bright=br if bright else None,
-              mean=_NORM[0] if norm else None,
-              std=_NORM[1] if norm else None)
+              mean=mean if norm else None, std=std if norm else None)
     on_card = {k: None if v is None else v.to(cuda) for k, v in kw.items()}
+    pix = torch.from_numpy(canvas).to(cuda)
+    m = torch.from_numpy(meta).to(cuda)
     before = (resize_pad.launches, resize_pad.train_launches)
-    out = resize_pad.resize_pad(torch.from_numpy(canvas).to(cuda),
-                                torch.from_numpy(meta).to(cuda), 180, 180, 3,
-                                dtype, **on_card)
+    out = resize_pad.resize_pad(pix, m, 180, 180, chans, dtype, **on_card)
     torch.cuda.synchronize()
     assert (resize_pad.launches, resize_pad.train_launches) == (
         before[0], before[1] + 1)
-    plain = preprocess.resize_pad_plain(torch.from_numpy(canvas),
-                                        torch.from_numpy(meta), 180, 180, 3,
-                                        **kw)
-    err = (out.cpu().float() - plain.to(dtype).float()).abs()
-    if dtype == torch.float32:
-        assert err.max().item() <= ATOL
-    else:
-        assert bool((err <= plain.to(dtype).float().abs() * 2.0 ** -7).all())
+    _assert_exact(out, preprocess.resize_pad_plain(pix, m, 180, 180, chans,
+                                                   dtype, **on_card))
 
 
 @pytest.mark.gpu
@@ -350,18 +365,29 @@ def test_train_form_identity_affine_is_the_eval_form(cuda):
 
 
 @pytest.mark.gpu
-def test_train_form_writes_into_a_slice(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# shift: elements ahead of the slice in its buffer; one element breaks the
+# 16-byte alignment a bulk store needs, so the vector path writes it
+@pytest.mark.parametrize("shift", [0, 1])
+def test_train_form_writes_into_a_slice(cuda, dtype, shift):
     canvas, meta, affine, br = _train_inputs(np.random.default_rng(4),
                                              (64, 128), r=40)
     pix = torch.from_numpy(canvas).to(cuda)
     m = torch.from_numpy(meta).to(cuda)
-    out = torch.full((50, 180, 180, 3), -1.0, device=cuda)
-    got = resize_pad.resize_pad(pix, m, 180, 180, 3, affine=affine.to(cuda),
-                                bright=br.to(cuda), out=out[5:45])
+    n = 180 * 180 * 3
+    buf = torch.full((50 * n + shift,), -1.0, dtype=dtype, device=cuda)
+    out = buf[shift:].view(50, 180, 180, 3)
+    kw = dict(affine=affine.to(cuda), bright=br.to(cuda))
+    vector = resize_pad.vector_launches
+    got = resize_pad.resize_pad(pix, m, 180, 180, 3, dtype, out=out[5:45],
+                                **kw)
     assert got.data_ptr() == out[5:45].data_ptr()
-    assert bool((out[:5] == -1).all()) and bool((out[45:] == -1).all())
-    want = resize_pad.resize_pad(pix, m, 180, 180, 3, affine=affine.to(cuda),
-                                 bright=br.to(cuda))
+    assert resize_pad.vector_launches == vector + shift
+    assert bool((buf[:shift + 5 * n] == -1).all())
+    assert bool((buf[shift + 45 * n:] == -1).all())
+    _assert_exact(out[5:45], preprocess.resize_pad_plain(
+        pix, m, 180, 180, 3, dtype, **kw))
+    want = resize_pad.resize_pad(pix, m, 180, 180, 3, dtype, **kw)
     assert torch.equal(out[5:45], want)
     with pytest.raises(ValueError):
         resize_pad.resize_pad(pix, m, 180, 180, 3, affine=affine)  # on CPU
@@ -418,7 +444,7 @@ def test_raw_form_matches_plain_version(cuda, make):
     assert resize_pad.launches == before + 1
     want = preprocess.resize_pad_plain(pix, m, 180, 180, 1, raw=True)
     assert float(got.max()) > 1.0
-    assert float((got - want).abs().max()) <= 1e-3
+    _assert_exact(got, want)
 
 
 @pytest.mark.gpu
