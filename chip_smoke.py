@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``sykepic_tpu_torch``) on one NVIDIA
 card: the ``prob`` main path, the fused ``pipeline --device-features``
-path, ``train``, the other families, the multi-GPU path, and the deployment
+path, ``train``, the other families, the multi-GPU path, the deployment
 path (the host-thread ``pipeline``, ``watch`` and ``export``) at full
-width, and every kernel on them held against its plain PyTorch version.
+width, the pandas CSV sub-commands and ``train``'s side modes, and every
+kernel on them held against its plain PyTorch version.
 
 Run from the root of a checkout, on a machine with a card::
 
@@ -12,7 +13,8 @@ Run from the root of a checkout, on a machine with a card::
 Phases, one JSON object per line on stdout:
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch, CUDA,
-   scipy and numpy versions, whether pandas imports, the host's cores, and
+   scipy and numpy versions, whether pandas, matplotlib and tqdm import,
+   the host's cores, and
    the build seconds of ``csrc/*.cu`` (nvcc, one process per source, all
    started together, into ``build/kernels/``) and of the native host
    library.
@@ -164,10 +166,29 @@ Phases, one JSON object per line on stdout:
    directory holding only ``config.ini``, ``class_names.txt`` and that
    ``best_state.pth`` runs ``prob`` on the card over the comparison set
    exactly as the msgpack directory does (max |dp| 0.0).
+16. ``csv_tools``: the pandas CSV sub-commands, each its own ``python -m
+   sykepic_tpu_torch`` process, on the ``.prob.csv`` and ``.feat.csv``
+   trees of ``pipeline_host`` (11 samples): ``class``, ``size`` (with an
+   exclusion list), ``abundance``, ``class_stats``,
+   ``features_per_prediction``, ``evaluate --search --best-out`` (on a
+   selection tree labelled from the prob CSVs) and ``frequency``. Every
+   output exists, one row a sample (``class``, ``size``, ``abundance``,
+   ``frequency``); at zero thresholds ``abundance``'s per-class counts equal
+   the argmax counts computed here with numpy and ``frequency``'s cells sum
+   to the ROIs; ``size``'s per-group counts sum to the ROIs its exclusion
+   list lets through. Printed: each command's seconds (host work).
+17. ``train_side``: ``train``'s side modes on the ``train`` phase's set:
+   ``--collage 8 8`` on the card (K1's eval form with ``raw``, then the
+   rotation warp) with K1's launch count set to 0 just before and read
+   just after, each of its K1 calls held against the plain version
+   (max |diff| <= 1e-3 on the 0-255 scale); with augmentations off, the
+   card's collage equal to ``--device cpu``'s pixel for pixel;
+   ``--save-images`` with ``--dist`` (every image copied; the plot written
+   where matplotlib imports, a raise where it does not).
 
 Then the ``kernels`` line (K1's eval form, with its launches on every
-path and its bfloat16 case, K1's train form, with its bfloat16 case, and
-K2), the
+path, the collage's among them, and its bfloat16 case, K1's train form,
+with its bfloat16 case, and K2), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a card, or outside a checkout, the script exits non-zero at once.
@@ -392,15 +413,20 @@ def phase_env(smi: str) -> dict:
     check(native_s["lib"] is not None, "the native host library did not build")
     import scipy  # the host features' (feat, pipeline, watch)
 
-    try:
-        import pandas  # noqa: F401  (only feat --matlab needs it)
-        has_pandas = True
-    except ImportError:
-        has_pandas = False
+    importable = {}
+    # pandas: feat --matlab and the CSV sub-commands; matplotlib: the
+    # training curves and train --dist; tqdm: progress bars
+    for name in ("pandas", "matplotlib", "tqdm"):
+        try:
+            __import__(name)
+            importable[name] = True
+        except ImportError:
+            importable[name] = False
     out = {"phase": "env", "gpu": smi, "device": torch.cuda.get_device_name(0),
            "torch": torch.__version__, "cuda": torch.version.cuda,
            "python": sys.version.split()[0], "scipy": scipy.__version__,
-           "numpy": np.__version__, "pandas_importable": has_pandas,
+           "numpy": np.__version__,
+           **{f"{k}_importable": v for k, v in importable.items()},
            "cpu_count": os.cpu_count(), "build_s": kernel_s,
            "native_build_s": native_s["s"]}
     emit(out)
@@ -2313,6 +2339,288 @@ def phase_export(run: dict) -> dict:
     return out
 
 
+CSV_THRESHOLDS = REPO / "tests/model/thresholds-2021.txt"
+CSV_ZERO = REPO / "tests/model/thresholds-zero.txt"
+CSV_GROUPS = REPO / "tests/model/size-groups.txt"
+SELECTED_SAMPLES = 3  # samples of the evaluate phase's selection tree
+
+
+def _csv_rows(path: Path) -> list:
+    """The data lines of a CSV, past its ``#`` comments and header."""
+    lines = [line for line in path.read_text().splitlines()
+             if line and not line.startswith("#")]
+    return lines[1:]
+
+
+def _csv_table(path: Path):
+    """``(header, rows)`` of a written CSV, ``rows`` as lists of strings."""
+    lines = path.read_text().splitlines()
+    return lines[0].split(","), [line.split(",") for line in lines[1:]]
+
+
+def phase_csv_tools(host: dict) -> dict:
+    """The pandas CSV sub-commands through ``python -m sykepic_tpu_torch``,
+    one process each, on the ``.prob.csv`` and ``.feat.csv`` trees that
+    ``pipeline_host`` wrote: ``class``, ``size``, ``abundance``,
+    ``class_stats``, ``features_per_prediction``, ``evaluate --search``
+    (on a selection tree labelled from the prob CSVs) and ``frequency``.
+    Checked: every output exists; ``class``, ``size`` and ``abundance`` give
+    one row a sample and ``frequency`` one a timestamp; at zero thresholds
+    ``abundance``'s per-class counts equal the argmax counts computed here
+    with numpy, and ``frequency``'s cells sum to the ROIs; the sum of
+    ``size``'s per-group counts equals the ROIs its exclusion list lets
+    through."""
+    root = WORK / "csv_tools"
+    probs, feats, evals, out = (root / d for d in
+                                ("probs", "feats", "evals", "out"))
+    for d in (probs, feats, evals, out):
+        d.mkdir(parents=True)
+    for src in sorted(host["out"].rglob("*.csv")):
+        dst = (probs if src.name.endswith(".prob.csv") else feats) / \
+            src.relative_to(host["out"])
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(src, dst)
+    prob_csvs = sorted(probs.rglob("*.prob.csv"))
+    feat_csvs = sorted(feats.rglob("*.feat.csv"))
+    samples = [p.name.removesuffix(".prob.csv") for p in prob_csvs]
+    check(len(prob_csvs) == len(feat_csvs) == len(host["samples"]),
+          f"csv_tools: {len(prob_csvs)} prob and {len(feat_csvs)} feat CSVs "
+          f"for {len(host['samples'])} samples")
+    classes = prob_csvs[0].read_text().splitlines()[0].split(",")[1:]
+
+    # argmax counts with numpy over the ROIs present in both trees (the
+    # post-processing joins the two on the ROI id)
+    argmax = {}
+    feat_rois = {}
+    for p_csv, f_csv, name in zip(prob_csvs, feat_csvs, samples):
+        rows = np.array([[float(v) for v in line.split(",")]
+                         for line in _csv_rows(p_csv)]).reshape(
+            -1, len(classes) + 1)
+        ids = {int(line.split(",")[0]) for line in _csv_rows(f_csv)}
+        feat_rois[name] = len(ids)
+        both = np.isin(rows[:, 0].astype(int), sorted(ids))
+        argmax[name] = np.bincount(rows[both, 1:].argmax(1),
+                                   minlength=len(classes))
+    n_rois = sum(len(_csv_rows(p)) for p in prob_csvs)
+
+    # a selection tree: every ROI of the first synthetic samples labelled
+    # with its argmax class, every fifth one "unclassifiable"
+    for p_csv in prob_csvs[1:1 + SELECTED_SAMPLES]:
+        lines = []
+        for k, line in enumerate(_csv_rows(p_csv)):
+            vals = line.split(",")
+            best = classes[int(np.argmax([float(v) for v in vals[1:]]))]
+            lines.append(f"{vals[0]},"
+                         f"{'unclassifiable' if k % 5 == 0 else best}")
+        (evals / p_csv.name.replace(".prob.csv", ".select.csv")).write_text(
+            "\n".join(lines) + "\n")
+    exclusion = root / "exclude.txt"
+    exclusion.write_text(samples[-1] + "\n")
+
+    commands = {
+        "class": ["class", probs, "--feat", feats, "-t", CSV_THRESHOLDS,
+                  "-o", out / "class.csv"],
+        "size": ["size", feats, "-g", CSV_GROUPS, "-s", "biovolume_um3",
+                 "-v", "abundance", "--volume", "-q", "-exc", exclusion,
+                 "-o", out / "size.csv"],
+        "abundance": ["abundance", probs, "--feat", feats, "-t", CSV_ZERO,
+                      "-o", out / "abundance.csv"],
+        "class_stats": ["class_stats", probs, "--feat", feats,
+                        "-t", CSV_ZERO, "-o", out / "class_stats.csv"],
+        "features_per_prediction": ["features_per_prediction", probs,
+                                    "--feat", feats, "-t", CSV_ZERO,
+                                    "-o", out / "fpp.csv"],
+        "evaluate": ["evaluate", evals, probs, "--search", "-p", "0.1",
+                     "-o", out / "scores.csv", "--best-out",
+                     out / "best.txt"],
+        "frequency": ["frequency", probs, "-t", CSV_ZERO,
+                      "-o", out / "frequency.csv"],
+    }
+    seconds = {}
+    for name, argv in commands.items():
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "sykepic_tpu_torch",
+                        *map(str, argv)], cwd=REPO, check=True,
+                       capture_output=True)
+        seconds[name] = time.perf_counter() - t0
+    expected = ("class.csv", "size.csv", "abundance.csv", "class_stats.csv",
+                "fpp1.csv", "scores.csv", "best.txt", "frequency.csv")
+    for f in expected:
+        check((out / f).is_file() and (out / f).stat().st_size,
+              f"csv_tools: {f} missing or empty")
+
+    header, rows = _csv_table(out / "class.csv")
+    check(header[0] == "Time" and header[-1] == "Total"
+          and "Filamentous cyanobacteria" in header,
+          f"class: header {header[:3]}...{header[-3:]}")
+    check(len(rows) == len(samples), f"class: {len(rows)} rows for "
+          f"{len(samples)} samples")
+
+    header, rows = _csv_table(out / "size.csv")
+    groups = sorted((line.split() for line in
+                     CSV_GROUPS.read_text().splitlines() if line.strip()),
+                    key=lambda g: float(g[1]))
+    check(header == ["time"] + [g[0] for g in groups] + ["total",
+                                                         "volume_ml"],
+          f"size: header {header}")
+    check(len(rows) == len(samples) - 1, f"size: {len(rows)} rows for "
+          f"{len(samples) - 1} samples past the exclusion list")
+    size_sum = sum(float(v) for r in rows for v in r[1:1 + len(groups)])
+    size_want = sum(n for s, n in feat_rois.items() if s != samples[-1])
+    check(size_sum == size_want, f"size: per-group counts sum to "
+          f"{size_sum}, want {size_want}")
+
+    header, rows = _csv_table(out / "abundance.csv")
+    check(len(rows) == len(samples), f"abundance: {len(rows)} rows")
+    want_names = [c.replace("_", " ") for c in classes]
+    col = {name: k for k, name in enumerate(header)}
+    for (name, counts), row in zip(argmax.items(), rows):
+        got = [int(row[col[c]]) for c in want_names]
+        check(got == counts.tolist(),
+              f"abundance: {name} counts differ from the argmax counts")
+
+    header, rows = _csv_table(out / "class_stats.csv")
+    check(header[:2] == ["class", "sample"] and len(header) == 18 and rows,
+          f"class_stats: header {header}")
+    fpp = sorted(out.glob("fpp*.csv"))
+    months = {s[5:7] for s in samples}
+    check(len(fpp) == len(months), f"features_per_prediction wrote "
+          f"{len(fpp)} chunks for months {sorted(months)}")
+
+    header, rows = _csv_table(out / "scores.csv")
+    check({"tp", "fp", "fn", "precision", "recall", "F1"} <= set(header)
+          and rows, f"evaluate: header {header}")
+    best = [line.split() for line in
+            (out / "best.txt").read_text().splitlines()]
+    check(best and all(0.0 <= float(v) <= 1.0 for _, v in best),
+          f"evaluate: best thresholds {best[:3]}")
+
+    header, rows = _csv_table(out / "frequency.csv")
+    check(len(rows) == len(samples), f"frequency: {len(rows)} rows for "
+          f"{len(samples)} samples")
+    freq_sum = sum(float(v) for r in rows for v in r[1:] if v)
+    check(freq_sum == n_rois, f"frequency: cells sum to {freq_sum}, "
+          f"want {n_rois}")
+    out_line = {"phase": "csv_tools", "samples": len(samples),
+                "rois": n_rois, "seconds": seconds,
+                "abundance_classes_checked": len(classes),
+                "size_rois": size_want, "selected_samples": SELECTED_SAMPLES,
+                "best_thresholds": len(best), "fpp_chunks": len(fpp)}
+    emit(out_line)
+    return out_line
+
+
+def phase_train_side(run: dict) -> dict:
+    """``train``'s side modes on the ``train`` phase's dataset, through the
+    CLI's ``main``: ``--collage 8 8`` on the card with K1's launch counter
+    set to 0 just before and read just after (it must rise); each of its
+    K1 calls held against the plain version on the same inputs; the same
+    collage with augmentations off on the card and on ``--device cpu``,
+    equal pixel for pixel; ``--save-images`` with ``--dist``, which draws
+    the distribution where matplotlib imports and must raise where it does
+    not. Returns the collage's K1 launches."""
+    from sykepic_tpu_torch.__main__ import main
+    from sykepic_tpu_torch.analyze import plot
+    from sykepic_tpu_torch.ops import resize_pad
+    from sykepic_tpu_torch.ops.preprocess import resize_pad_plain
+    from sykepic_tpu_torch.utils import png
+
+    root = WORK / "train_side"
+    root.mkdir()
+    dataset = Path(run["dataset"])
+    inis = {}
+    for name, augs in (("augmented", "flip, translate, zoom, rotate, "
+                        "brightness"), ("plain", "")):
+        text = TRAIN_INI.format(dataset=dataset, models=root / "models",
+                                epochs=1).replace(
+            "augmentations = flip, translate, zoom, brightness",
+            f"augmentations = {augs}")
+        inis[name] = root / f"{name}.ini"
+        inis[name].write_text(text)
+
+    calls = []
+    real_k1 = resize_pad.resize_pad
+
+    def recording(pixels, meta, *args, **kwargs):
+        out = real_k1(pixels, meta, *args, **kwargs)
+        if pixels.is_cuda:
+            calls.append((pixels.cpu(), meta.cpu(), args, kwargs,
+                          out.cpu()))
+        return out
+
+    seconds = {}
+    resize_pad.resize_pad = recording
+    try:
+        resize_pad.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):  # its [INFO] line
+            card_png = main(["train", str(inis["augmented"]), "--collage",
+                             "8", "8", str(root / "collage")])
+        torch.cuda.synchronize()
+        seconds["collage_card"] = time.perf_counter() - t0
+        launches = resize_pad.launches
+    finally:
+        resize_pad.resize_pad = real_k1
+    check(launches > 0, "train --collage never launched K1")
+    check(len(calls) == launches, f"collage: {len(calls)} recorded K1 "
+          f"calls for {launches} launches")
+    worst = 0.0
+    for pixels, meta, args, kwargs, got in calls:
+        want = resize_pad_plain(pixels, meta, *args, **kwargs)
+        worst = max(worst, float((got - want).abs().max()))
+    check(worst <= 1e-3, f"collage: K1 differs from its plain version by "
+          f"{worst} (0-255 scale)")
+    img = png.read_png(card_png)
+    check(img.shape == (8 * 180, 8 * 180), f"collage shape {img.shape}")
+
+    plain = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            path = main(["train", str(inis["plain"]), "--device", device,
+                         "--collage", "8", "8",
+                         str(root / f"plain_{device}.png")])
+        seconds[f"collage_plain_{device}"] = time.perf_counter() - t0
+        plain[device] = png.read_png(path)
+    diff = int(np.abs(plain["cuda"].astype(int) - plain["cpu"]).max())
+    check(diff == 0, f"collage: the card's plain collage differs from the "
+          f"CPU's by {diff} levels")
+    check(not np.array_equal(img, plain["cuda"]),
+          "collage: the augmentations changed nothing")
+
+    has_mpl = plot.available()
+    images, dist = root / "images", root / "dist.png"
+    t0 = time.perf_counter()
+    argv = ["train", str(inis["plain"]), "--save-images", str(images),
+            "--dist", str(dist)]
+    with contextlib.redirect_stdout(sys.stderr):
+        if has_mpl:
+            main(argv)
+        else:
+            try:
+                main(argv)
+            except ImportError:
+                pass
+            else:
+                raise AssertionError("train --dist succeeded without "
+                                     "matplotlib")
+    seconds["save_images_dist"] = time.perf_counter() - t0
+    copied = {d: len(list((images / d).iterdir()))
+              for d in ("train", "val", "test")}
+    check(sum(copied.values()) == TRAIN_IMAGES,
+          f"save-images copied {copied} of {TRAIN_IMAGES}")
+    check(dist.is_file() == has_mpl, f"dist: file {dist.is_file()}, "
+          f"matplotlib {has_mpl}")
+    check(not (root / "models").exists(), "a side mode trained a model")
+    out = {"phase": "train_side", "collage": [8, 8], "k1_launches": launches,
+           "k1_calls_checked": len(calls), "k1_max_abs_err": worst,
+           "card_vs_cpu_max_level_diff": diff, "saved_images": copied,
+           "matplotlib_importable": has_mpl, "dist_written": dist.is_file(),
+           "seconds": seconds}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -2368,6 +2676,8 @@ def main() -> int:
     check(host["launches"] > 0, "the host-thread pipeline never launched K1")
     watch_launches = timed("watch", phase_watch, model_dir, host)
     timed("export", phase_export, run)
+    timed("csv_tools", phase_csv_tools, host)
+    side = timed("train_side", phase_train_side, run)
     emit({"phase_seconds": seconds})
     k = main_case["f32"]
     emit({"kernels": [{
@@ -2389,6 +2699,8 @@ def main() -> int:
         # cycles, each counted from 0
         "pipeline_host_launches": host["launches"],
         "watch_launches": watch_launches,
+        # train --collage 8 8 on the card (eval form, raw), counted from 0
+        "collage_launches": side["k1_launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "device_ms": k["device_ms"],

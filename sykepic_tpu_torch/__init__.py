@@ -19,9 +19,12 @@ Layout (the JAX package's layer map):
   loading and ``export`` (a reference-loadable ``best_state.pth``)
 - :mod:`sykepic_tpu_torch.compute` -- the inference engine, ``prob``, the
   host features and ``feat`` (numpy and scipy), ``pipeline`` (host-thread
-  features beside the device, or ``--device-features``) and the ``watch``
-  daemon
-- :mod:`sykepic_tpu_torch.train`   -- ``train``
+  features beside the device, or ``--device-features``), the ``watch``
+  daemon and the pandas CSV sub-commands (``class``, ``size``,
+  ``abundance``, ``class_stats``, ``features_per_prediction``)
+- :mod:`sykepic_tpu_torch.analyze` -- ``evaluate``, ``frequency``, plots and
+  the classification report
+- :mod:`sykepic_tpu_torch.train`   -- ``train`` and its side modes
 - :mod:`sykepic_tpu_torch.parallel` -- several cards (torch.distributed)
 - :mod:`sykepic_tpu_torch.device`  -- device resolution (cuda by default)
 

@@ -1,3 +1,3 @@
-"""Analysis helpers the port's training reaches (the port of
-``sykepic_tpu/analyze``): the training-curve plot and the classification
-report."""
+"""Analysis layer (the port of ``sykepic_tpu/analyze``): threshold
+evaluation (``evaluate``), class-frequency time series (``frequency``),
+plotting and the classification report."""

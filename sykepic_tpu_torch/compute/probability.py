@@ -35,18 +35,11 @@ import numpy as np
 from ..ingest import ifcb, native, pack
 from ..utils import files, logger, png
 from .engine import Classifier
+from .output import progress
 
 FILE_SUFFIX = ".prob"
 MAX_ROI_BYTES = 1e9
 log = logger.get_logger("prob")
-
-def _progress(iterable, desc: str):
-    """``tqdm`` over ``iterable`` where it is installed, else as is."""
-    try:
-        from tqdm import tqdm
-    except ImportError:
-        return iterable
-    return tqdm(iterable, desc=desc)
 
 
 def call(args):
@@ -134,7 +127,7 @@ def main(
         if samples_as_images:
             items = sample_paths.items()
             for sample, img_paths in (
-                    _progress(items, "Processing samples") if progress_bar
+                    progress(items, "Processing samples") if progress_bar
                     else items):
                 csv_path = Path(out_dir) / f"{sample}{FILE_SUFFIX}.csv"
                 process_images(img_paths, clf, csv_path, force)
@@ -233,7 +226,7 @@ def process_samples_batched(sample_paths, clf: Classifier, out_dir,
         # lazy per-sample decode: memory stays bounded by the in-flight
         # batches; decode errors are isolated per sample. Each sample
         # ships as ONE columnar RoiBlock.
-        iterator = (_progress(todo, "Processing samples") if progress_bar
+        iterator = (progress(todo, "Processing samples") if progress_bar
                     else todo)
         for idx in iterator:
             try:

@@ -15,9 +15,13 @@ Keeps the contracts of the JAX package:
   tensors and dicts, loadable with ``weights_only=True``): model, optimizer,
   LR schedule and best-metric bookkeeping.
 
-The device is ``cuda`` unless ``--device cpu`` is asked for. The side modes
-``--save-images``, ``--dist`` and ``--collage`` are not ported yet (ROADMAP
-Queue 1 item 12e) and raise ``NotImplementedError``.
+The device is ``cuda`` unless ``--device cpu`` is asked for. The side
+modes follow the JAX package (reference ``train.py:38-93``):
+``--save-images DIR`` copies the split image sets and goes on;
+``--dist FILE`` draws the class distribution and returns (matplotlib must
+import); ``--collage ROWS COLUMNS PNG`` resizes one shuffled batch with K1's
+eval form on the 0-255 scale on the device, augments it as the ``rotate``
+route does (draws from a ``torch.Generator`` seeded 0) and saves the grid.
 
 Under a process group (torchrun, or the spawn of ``train`` on a host with
 several cards; :mod:`sykepic_tpu_torch.parallel`) every rank runs
@@ -42,6 +46,7 @@ from ..analyze import plot
 from ..analyze.report import classification_report
 from ..models import checkpoint, registry
 from ..ops import augment as augment_ops
+from ..ops import preprocess, resize_pad
 from ..utils import logger
 from . import config as config_mod
 from . import data
@@ -82,13 +87,13 @@ def rank_main(device, options: dict) -> None:
     main(argparse.Namespace(**{**options, "device": str(device)}))
 
 
+def side_mode(args) -> bool:
+    """Whether ``args`` asks for ``--dist`` or ``--collage``: each runs in
+    one process and trains nothing, whatever the cards."""
+    return any(getattr(args, mode, None) for mode in ("dist", "collage"))
+
+
 def main(args):
-    for mode in ("save_images", "dist", "collage"):
-        if getattr(args, mode, None):
-            raise NotImplementedError(
-                f"train --{mode.replace('_', '-')} is not ported yet "
-                "(ROADMAP Queue 1 item 12e)")
-    device = device_mod.resolve(getattr(args, "device", None))
     config = config_mod.read_config(args.config)
 
     # [dataset] (reference train.py:22-36)
@@ -107,6 +112,21 @@ def main(args):
     random_seed = config.getint("dataset", "random_seed")
     model_data = data.ModelData(dataset, split, min_N, max_N, exclude, random_seed)
 
+    if getattr(args, "save_images", None) and parallel.rank() == 0:
+        _save_images(args.save_images, model_data, test_split)
+
+    if getattr(args, "dist", None):
+        if not plot.available():
+            raise ImportError("train --dist draws with matplotlib, which "
+                              "does not import here")
+        out_file = Path(args.dist)
+        if not out_file.suffix:
+            out_file = out_file.with_suffix(".png")
+        plot.dataset_distribution(model_data, out_file)
+        print(f"[INFO] Distribution plot saved to {out_file}")
+        return None
+
+    device = device_mod.resolve(getattr(args, "device", None))
     if oversample_until := config.get("dataset", "oversample_until", fallback=""):
         model_data.oversample(int(oversample_until), None)
     elif decay := config.get("dataset", "oversample_with_decay", fallback=""):
@@ -117,6 +137,11 @@ def main(args):
     num_workers = config.getint("image", "num_workers")
     spec = config_mod.get_preprocess_spec(config)
     augment_spec = config_mod.get_augment_spec(config)
+
+    if getattr(args, "collage", None):
+        return _collage(args.collage, model_data, spec, augment_spec,
+                        num_workers, device)
+
     num_classes = model_data.num_classes
     external_test = config.get("dataset", "external_test", fallback="")
 
@@ -509,3 +534,72 @@ def _augment_kwargs(augment_spec):
         augment_spec.brightness_range,
         augment_spec.max_rotation,
     )
+
+
+def _save_images(root, model_data, test_split: bool) -> None:
+    """Copy the split image sets to disk (reference ``train.py:38-51``)."""
+    root = Path(root)
+    (root / "train").mkdir(exist_ok=True, parents=True)
+    (root / "val").mkdir(exist_ok=True)
+    for img_path in model_data.train_x:
+        shutil.copy(img_path, root / "train" / img_path.name)
+    for img_path in model_data.val_x:
+        shutil.copy(img_path, root / "val" / img_path.name)
+    if test_split:
+        (root / "test").mkdir(exist_ok=True)
+        for img_path in model_data.test_x:
+            shutil.copy(img_path, root / "test" / img_path.name)
+
+
+def collage_batch(batch, spec, augment_spec, device) -> np.ndarray:
+    """One host batch as the collage shows it: ``(B, target_h, target_w)``
+    float32 on the 0-255 scale. K1's eval form with ``raw`` resizes and pads
+    it on ``device`` (its plain version on the CPU); with augmentations in
+    the spec, :func:`~sykepic_tpu_torch.ops.augment.augment_batch` warps it
+    with draws from a ``torch.Generator`` seeded 0, where the JAX package
+    uses ``PRNGKey(0)`` (``sykepic_tpu/train/loop.py:613-653``)."""
+    t_h, t_w = spec.target_h, spec.target_w
+    new_h, new_w, pad_top, pad_left = preprocess.compute_geometry(
+        batch.heights, batch.widths, t_h, t_w)
+    border = preprocess.border_values(batch.canvas, batch.heights,
+                                      batch.widths, spec.border)
+    meta = torch.from_numpy(preprocess.slot_meta(
+        batch.heights, batch.widths, new_h, new_w, pad_top, pad_left,
+        border)).to(device)
+    pixels = torch.from_numpy(np.ascontiguousarray(batch.canvas)).to(device)
+    img = resize_pad.resize_pad(pixels, meta, t_h, t_w, 1, torch.float32,
+                                raw=True)[..., 0]
+    kwargs = _augment_kwargs(augment_spec)
+    if kwargs:
+        lim_x, lim_y = augment_ops.translate_limits(
+            batch.heights, batch.widths, new_h, new_w, t_h, t_w)
+        gen = torch.Generator(device=device).manual_seed(0)
+        draws = augment_ops.draw_params(
+            gen, len(batch.heights), torch.from_numpy(lim_x),
+            torch.from_numpy(lim_y), device=device, **kwargs)
+        img = augment_ops.augment_batch(img, draws, meta[9])
+    return img.cpu().numpy()
+
+
+def _collage(collage_args, model_data, spec, augment_spec, num_workers,
+             device):
+    """Save a grid of augmented training images (reference
+    ``train.py:76-93``): one shuffled batch of ``ROWS x COLUMNS`` images
+    through :func:`collage_batch`."""
+    height, width, out_file = collage_args
+    height, width = int(height), int(width)
+    out_file = Path(out_file)
+    if not out_file.suffix:
+        out_file = out_file.with_suffix(".png")
+    train_x, train_y = model_data.train_set()
+    loader = BatchLoader(
+        train_x, train_y, height * width, shuffle=True,
+        num_threads=max(num_workers, 1),
+    )
+    batches = iter(loader)
+    batch = next(batches)
+    batches.close()  # stops the loader's producer thread
+    img = collage_batch(batch, spec, augment_spec, device)
+    plot.view_batch(img / 255.0, h=height, w=width, save=out_file)
+    print(f"[INFO] Image collage saved to {out_file}")
+    return out_file

@@ -28,9 +28,10 @@ does not depend on ``cv2``, so it reads PNGs itself:
 - Anything else (16-bit, palette, gray with alpha, interlaced) raises
   ``ValueError`` naming the file.
 
-:func:`write_png` writes 8-bit grayscale, filter 0 by default or the row
+:func:`write_png` writes 8-bit grayscale (a 2-D array) or 8-bit RGB (an
+``(h, w, 3)`` array, colour type 2), filter 0 by default or the row
 filters it is given (tests and the smoke run build their datasets with
-it); :func:`png_dims` reads the size from the IHDR chunk without decoding
+it; ``train --collage`` writes its grid with it); :func:`png_dims` reads the size from the IHDR chunk without decoding
 (``sykepic_tpu/train/input.py:40-53``).
 """
 
@@ -187,17 +188,18 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def _filter_rows(img: np.ndarray, filters) -> np.ndarray:
-    """Row ``y`` of a 2-D uint8 image filtered with ``filters[y %
-    len(filters)]`` (0-4), its filter byte first: ``(h, 1 + w)`` uint8."""
+def _filter_rows(img: np.ndarray, filters, bpp: int = 1) -> np.ndarray:
+    """Row ``y`` of a 2-D uint8 array of scanline bytes (``bpp`` bytes a
+    pixel) filtered with ``filters[y % len(filters)]`` (0-4), its filter
+    byte first: ``(h, 1 + w)`` uint8."""
     h, w = img.shape
     x = img.astype(np.int16)
     a = np.zeros_like(x)
-    a[:, 1:] = x[:, :-1]
+    a[:, bpp:] = x[:, :-bpp]
     b = np.zeros_like(x)
     b[1:] = x[:-1]
     c = np.zeros_like(x)
-    c[1:, 1:] = x[:-1, :-1]
+    c[1:, bpp:] = x[:-1, :-bpp]
     p = a + b - c
     pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
     paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
@@ -208,18 +210,24 @@ def _filter_rows(img: np.ndarray, filters) -> np.ndarray:
 
 
 def encode_png(img: np.ndarray, level: int = 6, filters=(0,)) -> bytes:
-    """2-D uint8 array -> PNG bytes (8-bit gray; row ``y`` takes the row
-    filter ``filters[y % len(filters)]``, 0 None, 1 Sub, 2 Up, 3 Average,
-    4 Paeth)."""
+    """2-D uint8 array (8-bit gray) or ``(h, w, 3)`` uint8 array (8-bit
+    RGB) -> PNG bytes; row ``y`` takes the row filter ``filters[y %
+    len(filters)]``, 0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth."""
     img = np.ascontiguousarray(img, np.uint8)
-    if img.ndim != 2:
-        raise ValueError(f"write_png takes a 2-D gray image, got {img.shape}")
+    if img.ndim == 3 and img.shape[2] == 3:
+        colour, bpp = 2, 3
+    elif img.ndim == 2:
+        colour, bpp = 0, 1
+    else:
+        raise ValueError(f"write_png takes a 2-D gray or an (h, w, 3) RGB "
+                         f"image, got {img.shape}")
     if not filters or not set(filters) <= {0, 1, 2, 3, 4}:
         raise ValueError(f"PNG row filters are 0-4, got {filters}")
-    h, w = img.shape
-    rows = _filter_rows(img, filters)
+    h, w = img.shape[:2]
+    rows = _filter_rows(img.reshape(h, w * bpp), filters, bpp)
     return (SIGNATURE
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0,
+                                          0))
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
             + _chunk(b"IEND", b""))
 

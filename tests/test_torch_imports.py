@@ -1,8 +1,8 @@
 """The port stands alone: ``sykepic_tpu_torch`` imports with JAX, flax,
 optax, the JAX package, cv2, scikit-learn and pandas blocked (the port
 depends on none of them; the card machine has no pandas), no source of it
-names the first six, pandas and matplotlib are imported only inside the
-functions that need them, and its entry points never carry on quietly on
+names the first six, pandas, matplotlib and tqdm are imported only inside
+the functions that need them, and its entry points never carry on quietly on
 the CPU when a card was asked for."""
 
 import ast
@@ -18,7 +18,7 @@ PACKAGE = REPO / "sykepic_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "sykepic_tpu", "cv2", "sklearn",
            "pandas")
 # optional on the card machine: imported inside the functions needing them
-LAZY = ("pandas", "matplotlib")
+LAZY = ("pandas", "matplotlib", "tqdm")
 
 
 @pytest.fixture(autouse=True)
@@ -63,7 +63,16 @@ def test_imports_with_jax_blocked():
                 "sykepic_tpu_torch.compute.feature",
                 "sykepic_tpu_torch.compute.feature_matlab",
                 "sykepic_tpu_torch.compute.watch",
-                "sykepic_tpu_torch.models.export"):
+                "sykepic_tpu_torch.models.export",
+                "sykepic_tpu_torch.compute.output",
+                "sykepic_tpu_torch.compute.prediction",
+                "sykepic_tpu_torch.compute.classification",
+                "sykepic_tpu_torch.compute.size_group",
+                "sykepic_tpu_torch.compute.abundance",
+                "sykepic_tpu_torch.compute.class_stats",
+                "sykepic_tpu_torch.compute.features_per_prediction",
+                "sykepic_tpu_torch.analyze.evaluation",
+                "sykepic_tpu_torch.analyze.frequency"):
         assert new in names
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKER, *names], cwd=REPO,
@@ -99,9 +108,9 @@ def test_sources_name_no_jax(path):
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_optional_packages_imported_lazily(path):
-    """pandas and matplotlib only inside a function: no statement of the
-    module's top level (nor of a class body, an ``if`` or a ``try`` there)
-    imports them."""
+    """pandas, matplotlib and tqdm only inside a function: no statement of
+    the module's top level (nor of a class body, an ``if`` or a ``try``
+    there) imports them."""
     tree = ast.parse(path.read_text(), filename=str(path))
     stack, top = list(tree.body), []
     while stack:

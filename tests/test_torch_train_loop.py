@@ -217,16 +217,6 @@ def test_resume_continues_in_same_dir(trained, tmp_path):
     assert best.read_bytes() == marker
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("--save-images", ["out"]), ("--dist", ["d.png"]),
-    ("--collage", ["2", "2", "c.png"])])
-def test_side_modes_are_not_ported_yet(trained, flag, value):
-    _, _, tmp = trained
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["train", str(tmp / "train.ini"), "--device", "cpu", flag,
-              *value])
-
-
 def test_rotation_trains_and_missing_card_raises(trained, tmp_path):
     _, _, tmp = trained
     text = (tmp / "train.ini").read_text().replace(
