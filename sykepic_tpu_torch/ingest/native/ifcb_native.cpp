@@ -392,7 +392,8 @@ long long png_unfilter(const unsigned char* raw, long long h,
 }
 
 // Lossless wire codec encoder (the C++ twin of wirecodec.encode's NumPy
-// path; byte-for-byte identical output, asserted in tests/test_wirecodec.py).
+// path; byte-for-byte identical output, asserted in
+// tests/test_torch_wirecodec.py).
 // Per window: pick the predictor with fewest 4-bit exceptions — vertical
 // (0), horizontal (1), or gradient left+up-upleft (2; decoded by chained
 // cumsums) — pack deltas mod 16 into a nibble plane, and emit mod-256
@@ -418,22 +419,24 @@ long long wire_encode(const unsigned char* windows, int nc, int h, int w,
     long long last_pos = -1;
     for (int k = 0; k < nc; ++k) {
         const unsigned char* win = windows + (long long)k * win_px;
-        // pass 1: exception counts under each predictor (vectorizable:
-        // d in [-510,518] after +8; unsigned compare catches both tails)
+        // pass 1: exception counts under each predictor (vectorizable).
+        // A delta d escapes when its residual (d - signed4(d)) & 255 is
+        // nonzero, i.e. when ((d + 8) & 255) > 15: the count is mod 256, as
+        // the NumPy twin's, so d = +-255 (which wraps to -+1) is no escape.
         long long nv = 0, nh = 0, ng = 0;
         for (int r = 0; r < h; ++r) {
             const unsigned char* row = win + (long long)r * w;
             const unsigned char* up = r ? row - w : zrow.data();
-            int cv = (unsigned)(row[0] - up[0] + 8) > 15u;
-            int ch = (unsigned)(row[0] + 8) > 15u;
-            int cg = (unsigned)(row[0] - up[0] + 8) > 15u;
+            int cv = ((row[0] - up[0] + 8) & 255) > 15;
+            int ch = ((row[0] + 8) & 255) > 15;
+            int cg = ((row[0] - up[0] + 8) & 255) > 15;
             for (int c = 1; c < w; ++c)
-                cv += (unsigned)(row[c] - up[c] + 8) > 15u;
+                cv += ((row[c] - up[c] + 8) & 255) > 15;
             for (int c = 1; c < w; ++c)
-                ch += (unsigned)(row[c] - row[c - 1] + 8) > 15u;
+                ch += ((row[c] - row[c - 1] + 8) & 255) > 15;
             for (int c = 1; c < w; ++c)
-                cg += (unsigned)(row[c] - row[c - 1] - up[c] + up[c - 1]
-                                 + 8) > 15u;
+                cg += ((row[c] - row[c - 1] - up[c] + up[c - 1] + 8) & 255)
+                      > 15;
             nv += cv;
             nh += ch;
             ng += cg;

@@ -126,7 +126,7 @@ class _Shelver:
     The placement loop is the host-side hot path of the classify stream,
     so it runs in C++ when the native library is available
     (``native.shelf_pack`` — the same algorithm, asserted equivalent in
-    ``tests/test_shelf.py``); the Python path below is the documented
+    ``tests/test_torch_shelf.py``); the Python path below is the documented
     fallback and the behavioral contract.
     """
 

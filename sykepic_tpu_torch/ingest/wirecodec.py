@@ -1,11 +1,15 @@
 """Lossless wire codec for shelf windows: fewer host->device bytes.
 
-A copy of the JAX package's codec (same format, same encoder, same
+A copy of the JAX package's codec (same format, same NumPy encoder, same
 ``decode_reference``), kept in the port so that the port needs nothing of
-that package. The codec was designed for a TPU behind a slow link, where the
-classification stream was bound by upload bytes; whether it still pays over
-PCIe on the card is an open question that ``PERF.md`` tracks
-(``SYKEPIC_WIRE_CODEC=off`` ships raw windows).
+that package. The port's native encoder writes the NumPy encoder's bytes;
+the JAX package's native encoder counts a delta of +-248..255 as an
+exception where the NumPy encoder (mod 256) does not, so on such windows it
+can pick another predictor (lossless either way). The codec was designed
+for a TPU behind a slow link, where the classification stream was bound by
+upload bytes; whether it still pays over PCIe on the card is an open
+question that ``PERF.md`` tracks (``SYKEPIC_WIRE_CODEC=off`` ships raw
+windows).
 
 Scheme:
 
