@@ -55,7 +55,7 @@ import queue
 import threading
 import time
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -214,9 +214,8 @@ class Classifier:
         # exception streams, decoded on the device; payoff-gated per
         # dispatch, so incompressible content ships raw either way
         self.wire_codec = _env_on("SYKEPIC_WIRE_CODEC")
-        self.wire_stats = {"encoded": 0, "raw": 0}
-        self._wire_stats_lock = threading.Lock()  # encoders run on a pool
-        # per-stage wall clocks, printed at stream end with SYKEPIC_PROFILE
+        # host spans and counters (profiling.StageTimer), on with
+        # SYKEPIC_PROFILE; read at each call, so a caller may swap it
         self.timer = profiling.StageTimer()
 
     # -- device side -------------------------------------------------------
@@ -585,12 +584,17 @@ class Classifier:
         threading.Thread(target=produce, daemon=True, name=name).start()
         try:
             while True:
-                item = q.get()
+                # the dispatch thread waiting for its next prepared batch:
+                # at a stream's head, the whole fill
+                with self.timer.stage("engine.wait_input"):
+                    item = q.get()
+                    if isinstance(item, Future):
+                        item = item.result()
                 if item is done:
                     return
                 if isinstance(item, BaseException):
                     raise item
-                yield item.result() if pool else item
+                yield item
         finally:
             cancel.set()  # unblock the producer if we exit early
             if pool:
@@ -598,14 +602,19 @@ class Classifier:
 
     def _encode_wire(self, batch):
         """Producer-thread half of the wire codec: encode the pixel tensor
-        (windows or canvas) when it pays; records the per-stream stats."""
+        (windows or canvas) when it pays; counts encoded and raw
+        dispatches."""
         pixels = (batch.windows if hasattr(batch, "windows")
                   else batch.canvas)
         with self.timer.stage("host.encode"):
             batch.wire = wirecodec.encode(pixels)
-        with self._wire_stats_lock:
-            self.wire_stats[
-                "encoded" if batch.wire is not None else "raw"] += 1
+        self.timer.count("engine.wire_encoded" if batch.wire is not None
+                         else "engine.wire_raw")
+
+    def _count_dispatch(self, batch, meta) -> None:
+        """Count one dispatch's ROIs and its slots, padding included."""
+        self.timer.count("engine.rois", batch.n_valid)
+        self.timer.count("engine.slots", meta.shape[1])
 
     def _drain_block(self, batch, host_rows, event):
         """Drain-thread half of a dispatch: wait for its rows, unpack the
@@ -646,6 +655,7 @@ class Classifier:
         in_flight: deque = deque()
         try:
             for batch, meta in self._prepared(tagged_rois):
+                self._count_dispatch(batch, meta)
                 host_rows, event = self._start_download(dispatch(batch, meta))
                 in_flight.append(drainer.submit(
                     self._drain_block, batch, host_rows, event))
@@ -655,7 +665,6 @@ class Classifier:
                 yield in_flight.popleft().result()
         finally:
             drainer.shutdown(wait=False, cancel_futures=True)
-        self.timer.report()
 
     def classify_rois(self, tagged_rois):
         """Per-ROI adapter over :meth:`classify_blocks`: yields
@@ -663,6 +672,7 @@ class Classifier:
         for sidx, rids, probs in self.classify_blocks(tagged_rois):
             for i in range(len(rids)):
                 yield int(sidx[i]), int(rids[i]), probs[i]
+        self.timer.report()
 
     def onchip_rate(self, tagged_rois, repeats: int = 4,
                     max_batches: int = 32):
@@ -760,6 +770,7 @@ class Classifier:
                        probs[i], tuple(float(v) for v in feats[i]))
 
         for batch, meta in self._prepared_fused(tagged_rois):
+            self._count_dispatch(batch, meta)
             host, event = self._start_download(
                 *self._dispatch_fused(batch, meta))
             in_flight.append((batch, host, event))

@@ -203,6 +203,7 @@ def _main_host_features(sample_paths, clf, prob_out_dir, feat_out_dir,
         for idx in list(results):  # zero-ROI samples
             if idx not in flushed:
                 flush(idx)
+        clf.timer.report()
         feat_done = {r for r in (f.result() for f in feat_futures) if r}
 
     if feat_done != written:

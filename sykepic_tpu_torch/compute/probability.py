@@ -206,6 +206,17 @@ def process_samples_batched(sample_paths, clf: Classifier, out_dir,
     Returns the set of sample names processed (written or skipped-existing,
     matching the reference's accounting, ``probability.py:105-115``).
     """
+    # one span over the whole job, so that its Python between the finer
+    # spans (output paths, the streams' set-up) is named in a trace too
+    with clf.timer.stage("prob.job"):
+        processed = _process_job(sample_paths, clf, out_dir, force,
+                                 progress_bar)
+    clf.timer.report()
+    return processed
+
+
+def _process_job(sample_paths, clf: Classifier, out_dir, force: bool,
+                 progress_bar: bool):
     sample_paths = [Path(p) for p in sample_paths]
     csv_paths = {}
     skipped = set()
@@ -251,19 +262,23 @@ def process_samples_batched(sample_paths, clf: Classifier, out_dir,
         futures = []
 
         def flush(idx):
-            probabilities_to_csv(sorted_rows(results[idx]), clf.classes,
-                                 csv_paths[idx])
+            with clf.timer.stage("prob.csv_write"):
+                probabilities_to_csv(sorted_rows(results[idx]), clf.classes,
+                                     csv_paths[idx])
             return sample_paths[idx].name
 
         for idx in completed_samples(clf.classify_blocks(roi_stream()),
                                      results, expected):
             flushed.add(idx)
             futures.append(writer.submit(flush, idx))
-        # zero-ROI samples and any stragglers
-        for idx in results:
-            if idx not in flushed:
-                futures.append(writer.submit(flush, idx))
-        written = {f.result() for f in futures}
+        # the job's close: zero-ROI samples and any stragglers, then the
+        # writers' join
+        with clf.timer.stage("prob.job_close"):
+            for idx in results:
+                if idx not in flushed:
+                    futures.append(writer.submit(flush, idx))
+            writer.shutdown(wait=True)
+            written = {f.result() for f in futures}
     return written | skipped
 
 

@@ -21,6 +21,7 @@ from sykepic_tpu.compute import engine as jengine
 from sykepic_tpu.ingest import ifcb
 from sykepic_tpu_torch.compute import engine
 from sykepic_tpu_torch.ops import resize_pad
+from sykepic_tpu_torch.utils import profiling
 
 FIXTURE = "tests/data/raw/valid/D20180712T065600_IFCB114"
 QUANTUM_BOUND = 1.2e-5
@@ -68,6 +69,7 @@ def test_classifier_matches_jax(jax_run, model_dir, codec):
                                                    device="cpu"))
     assert clf.device == torch.device("cpu")
     assert (clf.packing, clf.wire_codec) == (packing, codec == "on")
+    clf.timer = profiling.StageTimer(enabled=True)
     before = resize_pad.launches
     got = _classify(clf)
     assert resize_pad.launches == before  # the CPU takes the plain version
@@ -79,7 +81,7 @@ def test_classifier_matches_jax(jax_run, model_dir, codec):
     np.testing.assert_array_equal(gp.argmax(1), wp.argmax(1))
     assert np.abs(gp - wp).max() <= QUANTUM_BOUND
     if codec == "on" and packing == "shelf":
-        assert clf.wire_stats["encoded"] >= 1
+        assert clf.timer.totals["engine.wire_encoded"] >= 1
 
 
 def _jax_rows(p):
