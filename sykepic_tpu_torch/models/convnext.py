@@ -11,9 +11,12 @@ down 4, stage 4]; then the global mean and ``head``.
 - No LayerNorm before the head: torchvision keeps its final norm in
   ``classifier``, which the reference's ``children[:-1]`` drops.
 
-The engine and the trainer hold activations in channels_last, so every
-LayerNorm normalises the channel axis of an NHWC view
-(:class:`LayerNorm2d`), never the last axis of the NCHW view.
+The trainer holds activations in channels_last, and so does the engine
+for ConvNeXt at every dtype (it finds :class:`LayerNorm2d` and
+:class:`Permute` in the model; other float32 networks run in NCHW there),
+so every LayerNorm normalises the channel axis of an NHWC view
+(:class:`LayerNorm2d`), never the last axis of the NCHW view, and each
+permute is a free view.
 """
 
 from __future__ import annotations

@@ -16,11 +16,12 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch_model_dirs import family_model_dir
 
 from sykepic_tpu.compute import engine as jengine
 from sykepic_tpu.ingest import ifcb
 from sykepic_tpu_torch.compute import engine
-from sykepic_tpu_torch.ops import resize_pad
+from sykepic_tpu_torch.ops import preprocess, resize_pad
 from sykepic_tpu_torch.utils import profiling
 
 FIXTURE = "tests/data/raw/valid/D20180712T065600_IFCB114"
@@ -148,3 +149,68 @@ def test_precompile_for_samples_warms_the_stream_shapes(model_dir):
                                               device="cpu"))
     shapes = {b.canvas.shape for b in clf._packed(iter(_tagged()))}
     assert probability.precompile_for_samples([FIXTURE], clf) == len(shapes)
+
+
+def _family_dir(name, model_dir, root):
+    """The file's ResNet18 directory, or a small one of another network."""
+    if name == "resnet18":
+        return model_dir
+    return family_model_dir(root, name, size=64, head=(32, 16))
+
+
+def _seeded_slots(clf, seed, b=2, ch=48, cw=96):
+    """A seeded slot batch for ``clf._forward``: random canvases of ROIs
+    up to 48x96 and their (10, b) metadata."""
+    rng = np.random.default_rng(seed)
+    hs, ws = rng.integers(8, ch + 1, b), rng.integers(8, cw + 1, b)
+    canvas = rng.integers(0, 256, (b, ch, cw), dtype=np.uint8)
+    geom = preprocess.compute_geometry(hs, ws, clf.spec.target_h,
+                                       clf.spec.target_w)
+    meta = preprocess.slot_meta(hs, ws, *geom, rng.integers(0, 256, b))
+    return torch.from_numpy(canvas), torch.from_numpy(meta)
+
+
+@pytest.mark.parametrize("name,dtype,want", [
+    ("resnet18", "float32", torch.contiguous_format),
+    ("vgg11", "float32", torch.contiguous_format),
+    # grouped convolutions, none depthwise
+    ("regnet_y_400mf", "float32", torch.contiguous_format),
+    ("resnet18", "bfloat16", torch.channels_last),
+    ("convnext_tiny", "float32", torch.channels_last),
+    # depthwise convolutions
+    ("efficientnet_b0", "float32", torch.channels_last),
+])
+def test_eval_memory_format_follows_dtype_and_layers(model_dir, tmp_path,
+                                                     name, dtype, want):
+    clf = engine.Classifier(_family_dir(name, model_dir, tmp_path),
+                            batch_size=4, dtype=dtype, device="cpu")
+    assert clf.memory_format == want
+    weights = [p for p in clf.model.parameters() if p.dim() == 4]
+    assert weights and all(p.is_contiguous(memory_format=want)
+                           for p in weights)
+    seen = []
+    clf.model.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
+    with torch.inference_mode():
+        clf._forward(*_seeded_slots(clf, 0))
+    (x,) = seen
+    assert x.is_contiguous(memory_format=want)
+
+
+@pytest.mark.parametrize("name", ["resnet18", "efficientnet_b0"])
+def test_probabilities_agree_across_memory_formats(tmp_path, name):
+    """A float32 Classifier in the format it picks against the same
+    weights run in the other format, on one seeded batch."""
+    d = family_model_dir(tmp_path, name, size=64, head=(32, 16))
+    clf = engine.Classifier(d, batch_size=4, device="cpu")
+    other = engine.Classifier(d, batch_size=4, device="cpu")
+    other.memory_format = (torch.channels_last if clf.memory_format
+                           == torch.contiguous_format
+                           else torch.contiguous_format)
+    other.model = other.model.to(memory_format=other.memory_format)
+    args = _seeded_slots(clf, 1, b=8)
+    with torch.inference_mode():
+        got, want = (engine.unpack_probs_u16(c._forward(*args).numpy(),
+                                             len(c.classes))
+                     for c in (clf, other))
+    np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
+    assert np.abs(got - want).max() <= QUANTUM_BOUND

@@ -18,7 +18,11 @@ rotation warp on the card. Multi-GPU at world size 1 (a NCCL group over the
 one card): a data-parallel mixed train step equals the step without a group
 (cuDNN deterministic; loss within 1e-5 relative), and ``prob`` through
 ``Classifier(mesh=)`` equals the run without a mesh (within 1.2e-5, the same
-ids), K1 launched on both.
+ids), K1 launched on both. The float32 eval model's memory format: in
+NCHW (ResNet18) a shelf dispatch launches none of cuDNN's NHWC<->NCHW
+transposes, channels_last (kept by EfficientNet-B0) launches them, and the
+probabilities of the two formats agree within the benchmark cells' bounds
+(5e-5 ResNet18, 5e-4 EfficientNet-B0).
 """
 
 import numpy as np
@@ -464,6 +468,62 @@ def test_family_forward_card_against_cpu(cuda, name):
         got = model(x.to(cuda).contiguous(
             memory_format=torch.channels_last)).cpu()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def _kernel_names(fn) -> list:
+    """Names of the device kernels that ``fn`` launches, from the raw
+    trace events of torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = torch.autograd.DeviceType.CUDA
+    return [e.name() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == dev]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,bound,picked", [
+    ("resnet18", 5e-5, torch.contiguous_format),
+    # depthwise convolutions keep channels_last
+    ("efficientnet_b0", 5e-4, torch.channels_last)])
+def test_float32_eval_memory_format_on_the_card(cuda, tmp_path, name, bound,
+                                                picked):
+    """A float32 ``Classifier``'s shelf dispatch in the format it picks
+    against the same model in the other format: the NCHW run launches none
+    of cuDNN's NHWC<->NCHW transposes, the channels_last run does, and the
+    probabilities agree within the benchmark cell's bound."""
+    from torch_model_dirs import family_model_dir
+
+    from sykepic_tpu_torch.compute import engine
+
+    clf = engine.Classifier(family_model_dir(tmp_path, name),
+                            batch_size=2048, device=cuda)
+    assert clf.memory_format == picked
+    rng = np.random.default_rng(7)
+    rois = [(0, i + 1, rng.integers(0, 256, tuple(rng.integers(8, 160, 2)),
+                                    dtype=np.uint8)) for i in range(2048)]
+    batch = next(iter(clf._packed(rois)))
+    meta = clf._shelf_meta(batch)
+    transposes = ("nhwcToNchw", "nchwToNhwc")
+    other = (torch.channels_last if picked == torch.contiguous_format
+             else torch.contiguous_format)
+
+    def run():
+        rows = clf.dispatch_shelf(batch, meta)
+        return engine.unpack_probs_u16(rows.cpu().numpy(), len(clf.classes))
+
+    probs = {}
+    for fmt in (picked, other):
+        clf.memory_format = fmt
+        clf.model.to(memory_format=fmt)
+        probs[fmt] = run()[:batch.n_valid]  # warm: cuDNN's plans
+        names = _kernel_names(run)
+        moved = [k for k in names if any(t in k for t in transposes)]
+        assert names and bool(moved) == (fmt == torch.channels_last), moved
+    got, want = probs.values()
+    assert np.abs(got - want).max() <= bound
 
 
 @pytest.mark.gpu

@@ -58,7 +58,8 @@ def test_eval_forward_matches_flax(flax_model):
         got = port(torch.from_numpy(x).permute(0, 3, 1, 2))
     assert got.shape == (4, NUM_CLASSES)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
-    # channels_last storage (how the engine runs it) changes nothing
+    # channels_last storage (how the trainer and a bf16 engine run it)
+    # changes nothing
     port = port.to(memory_format=torch.channels_last)
     with torch.inference_mode():
         got_cl = port(torch.from_numpy(x).permute(0, 3, 1, 2))
