@@ -38,6 +38,17 @@ Phases, one JSON object per line on stdout:
    share of it by device ms, the copy floor (``out.copy_`` from an equal
    tensor, back to back: the card's practical rate for the output's bytes)
    and the store path the launch plan took (``bulk`` or ``vector``).
+2b. ``kernel_layernorm``: ConvNeXt's eval LayerNorm kernel
+   (``csrc/layernorm.cu``) at ConvNeXt-T's four widths of a 2,048-slot
+   dispatch of 180x180 ROIs (2048 x 45x45 x 96, 22x22 x 192, 11x11 x 384,
+   5x5 x 768), with and without the convolution's bias: against its plain
+   version and ``F.layer_norm`` of the sum (max |diff| <= 1e-5), one launch
+   a call; ms by events, device ms (torch.profiler), loop ms, host us a
+   call, the byte bound (8 B a value at 3.35 TB/s) and the share of it, the
+   plain version's ms and ``F.layer_norm``'s (the library yardstick, timed
+   only). Then ConvNeXt-T's eval forward of one 2,048-slot dispatch with
+   the kernel and with ATen's LayerNorm: device ms of each, 22 launches a
+   forward, probabilities within 1e-5.
 3. ``prob``: a full-width ResNet18 model dir (the repo's config, seeded
    random weights saved as a reference-layout ``best_state.pth``) and a
    workload of the fixture sample plus 20,000 synthetic ROIs in
@@ -135,14 +146,16 @@ Phases, one JSON object per line on stdout:
    checked and K1 launched once per dispatch; then its on-chip rate, a
    profiled warm stream (busy share, the three largest device-time kinds)
    and the card against the CPU on 66 ROIs (within 1.2e-5, the same
-   argmax). Then ``train`` for two epochs (stages 0 and 1, bf16, batch 256,
-   Adam) on the ``train`` phase's set: ``efficientnet_b0`` with flip,
-   translate, zoom, rotate (``max_rotation`` 10) and brightness, so K1's
-   eval form and the rotation warp run on the card, and ``convnext_tiny``
-   with K1's train form; the loss must fall, K1's launches by form must
-   equal the bucket-steps and eval batches, and ``prob`` must read the
-   trained directory. Printed: images/s of epoch 2 and of one more steady
-   epoch, and a profiled epoch's device time by kind.
+   argmax); ConvNeXt-T's cold run launches the LayerNorm kernel 22 times a
+   dispatch, the other families never. Then ``train`` for two epochs
+   (stages 0 and 1, bf16, batch 256, Adam) on the ``train`` phase's set:
+   ``efficientnet_b0`` with flip, translate, zoom, rotate (``max_rotation``
+   10) and brightness, so K1's eval form and the rotation warp run on the
+   card, and ``convnext_tiny`` with K1's train form; the loss must fall,
+   K1's launches by form must equal the bucket-steps and eval batches, and
+   ``prob`` must read the trained directory. Printed: images/s of epoch 2
+   and of one more steady epoch, and a profiled epoch's device time by
+   kind.
 
 12. ``parallel``: the multi-GPU path on the one card, a NCCL group at
    world size 1 with a data mesh over it
@@ -624,6 +637,130 @@ def phase_kernel(model_dir: Path, samples) -> dict:
         k1_case(f"slots_{b}x{ch}x{cw}", canvas,
                 preprocess.slot_meta(hs, ws, *geom, border))
     return main_case
+
+
+# ConvNeXt-T's four LayerNorm widths at a 2,048-slot dispatch of 180x180
+# ROIs: (channels, side of the NHWC map)
+LN_SHAPES = ((96, 45), (192, 22), (384, 11), (768, 5))
+LN_TOL = 1e-5  # float32 sums in two orders and rsqrtf's 2 ulp, values < 8
+LN_FORWARD_TOL = 1e-5  # probabilities, kernel path against ATen's
+
+
+def ln_case(c: int, side: int, pre: bool) -> dict:
+    """The LayerNorm kernel at one width of a 2,048-slot dispatch against
+    its plain version (both on the card) and ``F.layer_norm``; with
+    ``pre``, the preceding convolution's bias added in the kernel."""
+    from torch.nn import functional as F
+
+    from sykepic_tpu_torch.ops import layernorm
+
+    g = torch.Generator(device="cuda").manual_seed(c)
+    x = 2 * torch.randn(BATCH, side, side, c, device="cuda", generator=g)
+    x += 0.5
+    w = 1 + 0.1 * torch.randn(c, device="cuda", generator=g)
+    b = 0.1 * torch.randn(c, device="cuda", generator=g)
+    pb = 0.5 * torch.randn(c, device="cuda", generator=g) if pre else None
+    eps = 1e-6
+
+    def call():
+        return layernorm.layernorm(x, w, b, eps, pre_bias=pb)
+
+    def plain():
+        return layernorm.layernorm_plain(x, w, b, eps, pre_bias=pb)
+
+    def library():
+        return F.layer_norm(x, (c,), w, b, eps)
+
+    got = call()
+    err = float((got - plain()).abs().max())
+    lib_err = float((got - F.layer_norm(x if pb is None else x + pb, (c,),
+                                        w, b, eps)).abs().max())
+    check(err <= LN_TOL and lib_err <= LN_TOL,
+          f"layernorm {c}x{side}: max |diff| {err} (plain), {lib_err} "
+          "(F.layer_norm)")
+    n0 = layernorm.launches
+    prof_ms, recorded = profiled_kernels(call, "layernorm", TIMED_LAUNCHES)
+    launched = layernorm.launches - n0
+    check(recorded == TIMED_LAUNCHES and launched == TIMED_LAUNCHES + 1,
+          f"layernorm {c}x{side}: {recorded} kernels recorded, {launched} "
+          f"launches for {TIMED_LAUNCHES} calls and a warm-up")
+    lib_prof_ms, lib_recorded = profiled_kernels(library, "layer_norm",
+                                                 TIMED_LAUNCHES)
+    device_ms = prof_ms / recorded
+    rows = BATCH * side * side
+    bound_ms = 1e3 * (8 * rows * c + (4 * c if pre else 0)) \
+        / MEMORY_BYTES_PER_S
+    del got
+    return {"channels": c, "shape": [BATCH, side, side, c], "pre_bias": pre,
+            "lanes_per_lane": list(layernorm.plan(c)),
+            "max_abs_err": err, "max_abs_err_library": lib_err,
+            "ms": time_ms(call, TIMED_LAUNCHES), "device_ms": device_ms,
+            "loop_ms": loop_ms(call, TIMED_LAUNCHES),
+            "host_us": host_us(call), "bound_ms": bound_ms,
+            "share_of_bound": bound_ms / device_ms,
+            "plain_ms": time_ms(plain, TIMED_PLAIN),
+            "library_ms": loop_ms(library, TIMED_LAUNCHES),
+            "library_device_ms": (lib_prof_ms / lib_recorded
+                                  if lib_recorded else None)}
+
+
+def ln_forward() -> dict:
+    """ConvNeXt-T's eval forward of one 2,048-slot dispatch on the card,
+    channels_last, with the kernel path and with ATen's LayerNorm (the
+    rule patched off): device ms of each, the kernel's launches a forward
+    (22) and the largest gap between their probabilities."""
+    from sykepic_tpu_torch.models import convnext, registry
+    from sykepic_tpu_torch.ops import layernorm
+
+    model = registry.init_weights(registry.build_model("convnext_tiny", 50),
+                                  0)
+    with torch.no_grad():  # block scales of 1, so the blocks count
+        for m in model.modules():
+            if isinstance(m, convnext.CNBlock):
+                m.layer_scale.fill_(1.0)
+    model = model.to("cuda", memory_format=torch.channels_last).eval()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.rand(BATCH, 180, 180, 3, device="cuda", generator=g).permute(
+        0, 3, 1, 2)
+
+    def forward():
+        with torch.inference_mode():
+            return torch.softmax(model(x) * np.log(1.3), dim=-1)
+
+    n0 = layernorm.launches
+    kernel = forward()
+    per_forward = layernorm.launches - n0
+    kernel_ms = loop_ms(forward, 3)
+    rule = convnext.eval_kernel_runs
+    convnext.eval_kernel_runs = lambda *a: False
+    try:
+        n0 = layernorm.launches
+        aten = forward()
+        check(layernorm.launches == n0, "the patched rule launched the "
+              "kernel")
+        aten_ms = loop_ms(forward, 3)
+    finally:
+        convnext.eval_kernel_runs = rule
+    dp = float((kernel - aten).abs().max())
+    check(per_forward == 22 and dp <= LN_FORWARD_TOL,
+          f"convnext_tiny forward: {per_forward} launches, max |dp| {dp}")
+    return {"launches_per_forward": per_forward, "max_abs_dp": dp,
+            "kernel_ms": kernel_ms, "aten_ms": aten_ms}
+
+
+def phase_kernel_layernorm(smi: str) -> dict:
+    """ConvNeXt's eval LayerNorm kernel at its four widths, with and
+    without the convolution's bias, and ConvNeXt-T's forward with it
+    against ATen's; returns the stage-1 case with the bias."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = [ln_case(c, side, pre) for c, side in LN_SHAPES
+             for pre in (True, False)]
+    out = {"phase": "kernel_layernorm", "gpu": smi, "cases": cases,
+           "forward": ln_forward()}
+    emit(out)
+    torch.cuda.empty_cache()
+    return cases[0]
 
 
 def check_csvs(out_dir: Path, counts: dict, classes) -> None:
@@ -1784,13 +1921,15 @@ def top_kinds(profile: dict, n: int = 3) -> list:
 
 
 def family_prob(name: str, raw: Path, counts: dict, small: list,
-                smi: str) -> int:
+                smi: str) -> tuple[int, int]:
     """One family's model dir through ``prob`` on the card (cold, then
     warm), its on-chip rate, a profiled warm stream, and the card against
-    the CPU; returns K1's launches in the cold run."""
+    the CPU; returns K1's and the LayerNorm kernel's launches in the cold
+    run."""
     from sykepic_tpu_torch.__main__ import main
     from sykepic_tpu_torch.compute.engine import Classifier
     from sykepic_tpu_torch.models import checkpoint
+    from sykepic_tpu_torch.ops import layernorm
 
     model_dir = build_family_dir(WORK / "families", name)
     classes = checkpoint.read_class_names(model_dir)
@@ -1802,11 +1941,17 @@ def family_prob(name: str, raw: Path, counts: dict, small: list,
         main(["prob", "-r", str(raw), "-m", str(model_dir), "-o", str(out),
               "-b", str(BATCH)] + (["-f"] if force else []))
 
+    ln0 = layernorm.launches
     cold_s, launches = timed_run(lambda: cli(False), {})
+    ln_launches = layernorm.launches - ln0
     dispatches = count_dispatches(samples, "shelf")
     check_csvs(out, counts, classes)
     check(launches == dispatches and launches > 0,
           f"{name}: K1 launched {launches} times for {dispatches} dispatches")
+    # ConvNeXt's 22 LayerNorms a forward run as the eval kernel
+    ln_want = 22 * dispatches if name.startswith("convnext") else 0
+    check(ln_launches == ln_want, f"{name}: the LayerNorm kernel launched "
+          f"{ln_launches} times for {ln_want}")
     warm_s, _ = timed_run(lambda: cli(True), {})
     check_csvs(out, counts, classes)
 
@@ -1834,6 +1979,7 @@ def family_prob(name: str, raw: Path, counts: dict, small: list,
           f"{name} card vs CPU: argmax differs")
     emit({"phase": "families_prob", "network": name, "gpu": smi,
           "rois": n_rois, "dispatches": dispatches, "k1_launches": launches,
+          "layernorm_launches": ln_launches,
           "cold_s": cold_s, "warm_s": warm_s,
           "warm_e2e_rois_per_s": n_rois / warm_s,
           "onchip_rois_per_s": n / per_pass,
@@ -1845,7 +1991,7 @@ def family_prob(name: str, raw: Path, counts: dict, small: list,
                               (pc.argmax(1) == pg.argmax(1)).mean()),
                           "ties_within_two_quanta": int((~clear).sum()),
                           "mean_top_prob": float(pc.max(1).mean())}})
-    return launches
+    return launches, ln_launches
 
 
 def family_train(name: str, augmentations: str, dataset: Path,
@@ -1945,16 +2091,19 @@ def family_train(name: str, augmentations: str, dataset: Path,
 
 def phase_families(run: dict, smi: str) -> dict:
     """The seven families through ``prob`` and two through ``train``;
-    returns K1's launches of each family's ``prob`` run and train run."""
+    returns K1's launches of each family's ``prob`` run and train run, and
+    the LayerNorm kernel's of each ``prob`` run."""
     raw = WORK / "raw_families"
     counts = build_raw(raw, FAMILY_ROIS, seed=43, start=datetime(2020, 1, 1))
     small = list(build_raw(WORK / "raw_families_compare", FAMILY_COMPARE,
                            seed=8, start=datetime(2020, 6, 1)))
-    prob = {name: family_prob(name, raw, counts, small, smi)
-            for name in FAMILY_NETS}
+    launched = {name: family_prob(name, raw, counts, small, smi)
+                for name in FAMILY_NETS}
     train = {name: family_train(name, augs, run["dataset"], smi)
              for name, augs in FAMILY_TRAIN}
-    return {"prob": prob, "train": train}
+    return {"prob": {name: k1 for name, (k1, _) in launched.items()},
+            "layernorm": {name: ln for name, (_, ln) in launched.items()},
+            "train": train}
 
 
 # -- multi-GPU: the data-parallel trainer and the engine under a mesh ----------
@@ -2872,6 +3021,7 @@ def main() -> int:
                    datetime(2018, 7, 12))
     main_case = timed("kernel_resize_pad", phase_kernel, model_dir,
                       list(counts))
+    ln = timed("kernel_layernorm", phase_kernel_layernorm, smi)
     launches = timed("prob", phase_prob, model_dir, raw, counts)
     check(launches > 0, "the main path never launched K1")
     timed("profile", phase_profile, model_dir, list(counts))
@@ -2983,6 +3133,25 @@ def main() -> int:
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],
         "library_ms": None,
+    }, {
+        # times at ConvNeXt-T's stage 1 of a 2,048-slot dispatch with the
+        # convolution's bias (the other widths are in kernel_layernorm);
+        # launches: ConvNeXt-T's cold prob run (22 a dispatch)
+        "name": "layernorm",
+        "route": "cuda",
+        "source": "sykepic_tpu_torch/csrc/layernorm.cu",
+        "replaces": None,
+        "launches": families["layernorm"]["convnext_tiny"],
+        "max_abs_err": ln["max_abs_err"],
+        "ms": ln["ms"],
+        "device_ms": ln["device_ms"],
+        "loop_ms": ln["loop_ms"],
+        "host_us": ln["host_us"],
+        "share_of_bound": ln["share_of_bound"],
+        "plain_ms": ln["plain_ms"],
+        "bound_ms": ln["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": ln["library_ms"],
     }], "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -68,7 +68,7 @@ from .. import parallel
 from ..ingest import pack, shelf, wirecodec
 from ..models import checkpoint
 from ..models.convnext import LayerNorm2d, Permute
-from ..ops import features_device, preprocess, wiredecode
+from ..ops import features_device, layernorm, preprocess, wiredecode
 from ..train import config as train_config
 from ..utils import logger, profiling
 from ..utils.depths import FUSED_PIPELINE_DEPTH, PIPELINE_DEPTH
@@ -225,6 +225,8 @@ class Classifier:
                  f"{str(self.memory_format).removeprefix('torch.')}")
         self.model = model.to(self.device,
                               memory_format=self.memory_format).eval()
+        # the LayerNorm kernel's launches when the last dispatch was counted
+        self._layernorm_seen = layernorm.launches
         self.d2h_compact = _env_on("SYKEPIC_D2H_COMPACT")
         self.packing = os.environ.get("SYKEPIC_PACKING", "shelf").lower()
         self._batch_multiple = parallel.data_axis_size(mesh)
@@ -642,9 +644,14 @@ class Classifier:
                          else "engine.wire_raw")
 
     def _count_dispatch(self, batch, meta) -> None:
-        """Count one dispatch's ROIs and its slots, padding included."""
+        """Count one dispatch, once it is made: its ROIs, its slots
+        (padding included) and the LayerNorm kernel's launches since the
+        last dispatch was counted (ConvNeXt's 22 a forward on the card, 0
+        for networks without LayerNorm or on ATen's path)."""
         self.timer.count("engine.rois", batch.n_valid)
         self.timer.count("engine.slots", meta.shape[1])
+        seen, self._layernorm_seen = self._layernorm_seen, layernorm.launches
+        self.timer.count("layernorm.launches", layernorm.launches - seen)
 
     def _drain_block(self, batch, host_rows, event):
         """Drain-thread half of a dispatch: wait for its rows, unpack the
@@ -685,8 +692,9 @@ class Classifier:
         in_flight: deque = deque()
         try:
             for batch, meta in self._prepared(tagged_rois):
+                rows = dispatch(batch, meta)
                 self._count_dispatch(batch, meta)
-                host_rows, event = self._start_download(dispatch(batch, meta))
+                host_rows, event = self._start_download(rows)
                 in_flight.append(drainer.submit(
                     self._drain_block, batch, host_rows, event))
                 if len(in_flight) >= PIPELINE_DEPTH:
@@ -800,9 +808,9 @@ class Classifier:
                        probs[i], tuple(float(v) for v in feats[i]))
 
         for batch, meta in self._prepared_fused(tagged_rois):
+            results = self._dispatch_fused(batch, meta)
             self._count_dispatch(batch, meta)
-            host, event = self._start_download(
-                *self._dispatch_fused(batch, meta))
+            host, event = self._start_download(*results)
             in_flight.append((batch, host, event))
             if len(in_flight) >= FUSED_PIPELINE_DEPTH:
                 yield from drain(*in_flight.popleft())

@@ -17,6 +17,15 @@ for ConvNeXt at every dtype (it finds :class:`LayerNorm2d` and
 so every LayerNorm normalises the channel axis of an NHWC view
 (:class:`LayerNorm2d`), never the last axis of the NCHW view, and each
 permute is a free view.
+
+In an eval forward on the card (:func:`eval_kernel_runs`: float32,
+channels_last, autocast off, no gradient recorded) each LayerNorm is the
+hand-written kernel of :mod:`sykepic_tpu_torch.ops.layernorm`, one launch
+a call. Where a convolution comes straight before it (the stem, and each
+block's depthwise 7x7) the convolution runs without its bias and the
+kernel adds it (``pre_bias``). Everywhere else (training, bf16, autocast,
+the CPU, a tensor-parallel block) ATen's LayerNorm runs as before. The
+modules, parameters and state-dict keys are the same on both paths.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops import layernorm
 from .layers import check_min_input
 from .resnet import Backbone, Head, StochasticDepth
 
@@ -42,15 +52,53 @@ LN_EPS = 1e-6
 LAYER_SCALE_INIT = 1e-6
 
 
+def eval_kernel_runs(x: torch.Tensor, module: nn.Module) -> bool:
+    """Whether ``module``'s LayerNorm of ``x`` (NCHW) runs as the eval
+    kernel (:mod:`sykepic_tpu_torch.ops.layernorm`): ``x`` is a float32 CUDA
+    tensor in channels_last (so the NHWC view of a convolution's output is
+    contiguous), autocast is off, and no gradient is recorded (none is
+    enabled, or neither ``x`` nor any parameter of ``module`` requires
+    one): the kernel has no backward."""
+    return (x.is_cuda and x.dtype == torch.float32
+            and x.is_contiguous(memory_format=torch.channels_last)
+            and not torch.is_autocast_enabled(x.device.type)
+            and not (torch.is_grad_enabled() and (
+                x.requires_grad
+                or any(p.requires_grad for p in module.parameters()))))
+
+
+def _conv_no_bias(conv: nn.Conv2d, x):
+    """``conv`` of ``x`` without its bias, in NHWC (a free view of the
+    channels_last output cuDNN gives; a copy only where it gave none)."""
+    return conv._conv_forward(x, conv.weight, None).permute(
+        0, 2, 3, 1).contiguous()
+
+
 class LayerNorm2d(nn.LayerNorm):
     """LayerNorm over the channel axis of an NCHW tensor (torchvision
     ``LayerNorm2d``)."""
 
     def forward(self, x):
+        if eval_kernel_runs(x, self):
+            return layernorm.layernorm(x.permute(0, 2, 3, 1), self.weight,
+                                       self.bias, self.eps).permute(0, 3, 1, 2)
         x = x.permute(0, 2, 3, 1)
         x = F.layer_norm(x, self.normalized_shape, self.weight, self.bias,
                          self.eps)
         return x.permute(0, 3, 1, 2)
+
+
+class Stem(nn.Sequential):
+    """The 4x4/4 convolution and its :class:`LayerNorm2d`; on the eval
+    kernel's path the LayerNorm adds the convolution's bias."""
+
+    def forward(self, x):
+        conv, norm = self
+        if type(conv) is not nn.Conv2d or not eval_kernel_runs(x, self):
+            return super().forward(x)
+        return layernorm.layernorm(_conv_no_bias(conv, x), norm.weight,
+                                   norm.bias, norm.eps,
+                                   pre_bias=conv.bias).permute(0, 3, 1, 2)
 
 
 class Permute(nn.Module):
@@ -79,7 +127,20 @@ class CNBlock(nn.Module):
         self.stochastic_depth = StochasticDepth(sd_prob)
 
     def forward(self, x):
-        return x + self.stochastic_depth(self.layer_scale * self.block(x))
+        conv, _, norm, fc1, act, fc2, _ = self.block
+        # a tensor-parallel depthwise convolution gathers its channels
+        # itself: it keeps ATen's path
+        if type(conv) is nn.Conv2d and eval_kernel_runs(x, self):
+            h = layernorm.layernorm(_conv_no_bias(conv, x), norm.weight,
+                                    norm.bias, norm.eps, pre_bias=conv.bias)
+            # one statement a layer, as nn.Sequential runs them: each
+            # input is freed as soon as its layer has run
+            for layer in (fc1, act, fc2):
+                h = layer(h)
+            h = h.permute(0, 3, 1, 2)
+        else:
+            h = self.block(x)
+        return x + self.stochastic_depth(self.layer_scale * h)
 
 
 class ConvNeXt(Backbone):
@@ -90,8 +151,8 @@ class ConvNeXt(Backbone):
                  sd_prob: float, num_classes: int,
                  head: Sequence[int] = (256, 128), dropout: Sequence = ()):
         super().__init__()
-        layers = [nn.Sequential(nn.Conv2d(3, dims[0], 4, stride=4),
-                                LayerNorm2d(dims[0], eps=LN_EPS))]
+        layers = [Stem(nn.Conv2d(3, dims[0], 4, stride=4),
+                       LayerNorm2d(dims[0], eps=LN_EPS))]
         total, block_id = sum(blocks), 0
         for i, (dim, n) in enumerate(zip(dims, blocks)):
             if i > 0:

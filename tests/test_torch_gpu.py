@@ -22,7 +22,13 @@ ids), K1 launched on both. The float32 eval model's memory format: in
 NCHW (ResNet18) a shelf dispatch launches none of cuDNN's NHWC<->NCHW
 transposes, channels_last (kept by EfficientNet-B0) launches them, and the
 probabilities of the two formats agree within the benchmark cells' bounds
-(5e-5 ResNet18, 5e-4 EfficientNet-B0).
+(5e-5 ResNet18, 5e-4 EfficientNet-B0). ConvNeXt's eval LayerNorm kernel
+(``csrc/layernorm.cu``) against its plain version and ``F.layer_norm`` on
+the card within 1e-5 absolute (outputs below 8; float32 sums in another
+order, rsqrtf within 2 ulp), at widths that reach each of its instances and
+at ConvNeXt-T's stage-1 dispatch; one launch a call, under a name holding
+``layernorm``; ConvNeXt-T's eval forward with the kernel against ATen's
+LayerNorm, probabilities within 1e-5.
 """
 
 import numpy as np
@@ -30,7 +36,8 @@ import pytest
 import torch
 
 from sykepic_tpu_torch.ingest import pack
-from sykepic_tpu_torch.ops import augment, flood, preprocess, resize_pad
+from sykepic_tpu_torch.ops import (augment, flood, layernorm, preprocess,
+                                   resize_pad)
 
 @pytest.fixture
 def cuda():
@@ -630,3 +637,127 @@ def test_nccl_world_one_trainer_and_engine(cuda, tmp_path):
         tmp_path / "plain"))
     assert pa.keys() == pb.keys() and pa
     assert max(float(np.abs(pa[r] - pb[r]).max()) for r in pa) <= 1.2e-5
+
+
+# widths that reach every instance of the LayerNorm kernel (1 to 12 float4
+# a lane), ConvNeXt-T's four among them
+LN_WIDTHS = (4, 8, 12, 96, 100, 192, 384, 640, 768, 800, 1024, 1100, 1240,
+             1400, 1536)
+LN_TOL = 1e-5
+
+
+def _ln_inputs(shape, c, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = 2 * torch.randn(*shape, c, generator=g, device=device) + 0.5
+    w = 1 + 0.1 * torch.randn(c, generator=g, device=device)
+    b = 0.1 * torch.randn(c, generator=g, device=device)
+    pb = 0.5 * torch.randn(c, generator=g, device=device)
+    return x, w, b, pb
+
+
+def _ln_check(x, w, b, pb):
+    from torch.nn import functional as F
+
+    c = x.shape[-1]
+    got = layernorm.layernorm(x, w, b, 1e-6, pre_bias=pb)
+    plain = layernorm.layernorm_plain(x, w, b, 1e-6, pre_bias=pb)
+    library = F.layer_norm(x if pb is None else x + pb, (c,), w, b, 1e-6)
+    torch.testing.assert_close(got, plain, rtol=0, atol=LN_TOL)
+    torch.testing.assert_close(got, library, rtol=0, atol=LN_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", LN_WIDTHS)
+@pytest.mark.parametrize("pre", [False, True])
+def test_layernorm_kernel_matches_plain_version(cuda, c, pre):
+    x, w, b, pb = _ln_inputs((5, 7, 13), c, c, cuda)  # 455 rows: ragged
+    _ln_check(x, w, b, pb if pre else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pre", [False, True])
+def test_layernorm_kernel_at_the_stage_1_dispatch(cuda, pre):
+    """ConvNeXt-T's stage 1 at a 2,048-slot dispatch: 4.1M rows of 96."""
+    x, w, b, pb = _ln_inputs((2048, 45, 45), 96, 1, cuda)
+    _ln_check(x, w, b, pb if pre else None)
+
+
+@pytest.mark.gpu
+def test_layernorm_one_launch_per_call_named_layernorm(cuda):
+    x, w, b, pb = _ln_inputs((64, 9, 9), 192, 2, cuda)
+
+    sentinel = torch.zeros(1, device=cuda)
+
+    def calls():
+        # torch.profiler has been seen to drop the first kernel of a
+        # profile on the card: a fill goes first, and only it may be dropped
+        sentinel.fill_(1.0)
+        return [layernorm.layernorm(x, w, b, 1e-6, pre_bias=p)
+                for p in (pb, None, pb)]
+
+    calls()
+    torch.cuda.synchronize()
+    n0 = layernorm.launches
+    names = _kernel_names(calls)
+    assert layernorm.launches - n0 == 3
+    ours = [n for n in names if "layernorm" in n]
+    assert len(ours) == 3 and len(names) - len(ours) <= 1, names
+    assert not any("gelu" in n or "resize_pad" in n for n in ours)
+    empty = layernorm.layernorm(x[:0], w, b, 1e-6)
+    assert empty.shape == (0, 9, 9, 192) and layernorm.launches - n0 == 3
+
+
+@pytest.mark.gpu
+def test_layernorm_rejects_what_it_does_not_take(cuda):
+    x, w, b, pb = _ln_inputs((4, 8), 96, 3, cuda)
+    bad = [
+        (x.transpose(0, 1), w, b, None),  # not contiguous
+        (x.double(), w.double(), b.double(), None),  # float64
+        (x[..., :94].contiguous(), w[:94], b[:94], None),  # C % 4 != 0
+        (torch.zeros(2, 1540, device=cuda), torch.ones(1540, device=cuda),
+         torch.zeros(1540, device=cuda), None),  # past 1536
+        (x, w[:48], b, None),  # weight of another width
+        (x, w, b, pb.cpu()),  # pre_bias on another device
+        # contiguous, but one float past 16-byte alignment
+        (torch.zeros(4 * 8 * 96 + 1, device=cuda)[1:].view(4, 8, 96), w, b,
+         None),
+    ]
+    n0 = layernorm.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            layernorm.layernorm(*args[:3], 1e-6, pre_bias=args[3])
+    assert layernorm.launches == n0
+
+
+@pytest.mark.gpu
+def test_convnext_eval_forward_kernel_against_aten(cuda, monkeypatch):
+    """ConvNeXt-T's eval forward on the card, channels_last: 22 kernel
+    launches a forward, and its probabilities within 1e-5 of the same
+    forward on ATen's LayerNorm (the rule patched off)."""
+    import math
+
+    from sykepic_tpu_torch.models import convnext, registry
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    model = registry.init_weights(registry.build_model("convnext_tiny", 50),
+                                  0)
+    with torch.no_grad():  # block scales of 1, so the blocks count
+        for m in model.modules():
+            if isinstance(m, convnext.CNBlock):
+                m.layer_scale.fill_(1.0)
+    model = model.to(cuda, memory_format=torch.channels_last).eval()
+    x = torch.rand(16, 3, 180, 180, generator=torch.Generator().manual_seed(2))
+    x = x.to(cuda).contiguous(memory_format=torch.channels_last)
+
+    def probs():
+        with torch.inference_mode():
+            return torch.softmax(model(x) * math.log(1.3), dim=-1).cpu()
+
+    n0 = layernorm.launches
+    got = probs()
+    assert layernorm.launches - n0 == 22
+    monkeypatch.setattr(convnext, "eval_kernel_runs", lambda *a: False)
+    want = probs()
+    assert layernorm.launches - n0 == 22
+    assert float((got - want).abs().max()) <= 1e-5

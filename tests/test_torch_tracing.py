@@ -28,6 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 from sykepic_tpu_torch.compute import probability
 from sykepic_tpu_torch.ingest import ifcb, pack
 from sykepic_tpu_torch.models import checkpoint
+from sykepic_tpu_torch.ops import layernorm
 from sykepic_tpu_torch.train import config as tcfg
 from sykepic_tpu_torch.utils import profiling
 
@@ -257,6 +258,36 @@ def test_input_wait_and_job_close_reach_the_profiler(prob_run):
     assert len(inner) == waits + 1 + len(prob_run["dispatched"])
     assert all(job[1] <= e[1] <= e[2] <= job[2] for e in inner)
     assert "engine.rois" not in timer.summary().split("counter")[0]
+
+
+def test_layernorm_launches_counted_once_a_dispatch(prob_run):
+    # ResNet18 on the CPU launches no LayerNorm kernel
+    timer = prob_run["timer"]
+    assert timer.totals["layernorm.launches"] == 0
+    assert timer.counts["layernorm.launches"] == len(prob_run["dispatched"])
+
+
+def test_layernorm_launches_are_each_dispatchs_own(tiny_model, monkeypatch):
+    """The counter adds the LayerNorm kernel's launches of each dispatch,
+    counted once the dispatch is made (a stand-in launches 22 a dispatch)."""
+    clf = probability.prepare_model(tiny_model, batch_size=2, device="cpu")
+    clf.timer = profiling.StageTimer(enabled=True)
+    inner = clf.dispatch_shelf
+
+    def launching(batch, meta):
+        layernorm.launches += 22
+        return inner(batch, meta)
+
+    monkeypatch.setattr(layernorm, "launches", layernorm.launches)
+    clf.dispatch_shelf = launching
+    rois = ifcb.read_sample(FIXTURE)
+    got = list(clf.classify_rois(
+        (0, int(i), rois.image(j)) for j, i in enumerate(rois.roi_ids)))
+    assert len(got) == len(rois)
+    timer = clf.timer
+    dispatches = timer.counts["layernorm.launches"]
+    assert dispatches == timer.counts["engine.rois"] >= 1
+    assert timer.totals["layernorm.launches"] == 22 * dispatches
 
 
 def test_fused_stream_counts_its_dispatches(tiny_model):
