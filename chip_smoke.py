@@ -54,15 +54,14 @@ Phases, one JSON object per line on stdout:
    workload of the fixture sample plus 20,000 synthetic ROIs in
    ``bench.py``'s size mix, written as genuine ``.adc/.roi/.hdr`` triplets,
    go through ``python -m sykepic_tpu_torch prob``'s ``main`` with
-   ``-b 2048``: shelf packing with the wire codec on (the defaults), again
-   warm, with the codec off, and with slot packing. Every CSV is checked,
-   and K1's launch count must equal the number of dispatches. A subset runs
+   ``-b 2048``: shelf packing with the wire codec on (the default), again
+   warm, and with the codec off. Every CSV is checked, and K1's launch
+   count must equal the number of dispatches. A subset runs
    on the CPU and on the card in float32 (same argmax, |dp| <= 1.2e-5) and
    bfloat16 (``bf16_contract``: the argmax agrees on every ROI whose
    float32 top-two gap exceeds twice ``BF16_DRIFT_BOUND``, 1e-2, and no
-   probability moves further than that bound; the near ties are counted).
-   ``onchip_rate`` in float32 and
-   bfloat16, and the e2e runs in bfloat16 through the same `prob` code.
+   probability moves further than that bound; the near ties are counted),
+   and the e2e runs in bfloat16 through the same `prob` code.
 4. ``profile``: a warm float32 stream under ``torch.profiler``: device
    time by kernel, K1's share of it, and the device's busy share.
 5. ``kernel_flood``: K2 against its plain version, exact (bool masks and
@@ -86,9 +85,8 @@ Phases, one JSON object per line on stdout:
    pipeline ... -b 2048 --device-features`` (float32, codec on), cold and
    warm. Every ``.prob.csv`` and ``.feat.csv`` is checked; K1's launches
    must equal the fused dispatches, and K2's warp-form and shared-memory
-   launches 7x the dispatches whose canvas picks that form. Then the fused
-   on-chip rate, peak device memory, and a warm stream under
-   ``torch.profiler`` (K2's device time split by form).
+   launches 7x the dispatches whose canvas picks that form. Then a warm
+   stream under ``torch.profiler`` (K2's device time split by form).
 7. ``pipeline_card_vs_cpu``: the fused pass on the 202-ROI comparison set,
    the port on the CPU against the card: probabilities within 1.2e-5, and
    over the ROIs with area >= 50 at least 90% with area, major and minor
@@ -143,10 +141,9 @@ Phases, one JSON object per line on stdout:
    ``vgg16_bn``, ``alexnet``, ``convnext_tiny``, ``regnet_y_400mf``. Each goes
    through ``prob`` on the card (float32, ``-b 2048``) on the fixture sample
    plus 4,000 synthetic ROIs in the same size mix, cold and warm, every CSV
-   checked and K1 launched once per dispatch; then its on-chip rate, a
-   profiled warm stream (busy share, the three largest device-time kinds)
-   and the card against the CPU on 66 ROIs (within 1.2e-5, the same
-   argmax); ConvNeXt-T's cold run launches the LayerNorm kernel 22 times a
+   checked and K1 launched once per dispatch; then a profiled warm stream
+   (busy share, the three largest device-time kinds) and the card against
+   the CPU on 66 ROIs (within 1.2e-5, the same argmax); ConvNeXt-T's cold run launches the LayerNorm kernel 22 times a
    dispatch, the other families never. Then ``train`` for two epochs
    (stages 0 and 1, bf16, batch 256, Adam) on the ``train`` phase's set:
    ``efficientnet_b0`` with flip, translate, zoom, rotate (``max_rotation``
@@ -409,18 +406,13 @@ def sample_blocks(paths):
                             offsets=rois.starts, base=rois.roi_data)
 
 
-def count_dispatches(paths, packing: str) -> int:
+def count_dispatches(paths) -> int:
     """Dispatches the engine makes for these samples with ``-b BATCH``:
-    the same packing pass, counted on the host."""
-    from sykepic_tpu_torch.ingest import pack, shelf
+    the same shelf packing pass, counted on the host."""
+    from sykepic_tpu_torch.ingest import shelf
 
-    if packing == "shelf":
-        gen = shelf.pack_shelves(sample_blocks(paths), pre_shrink_to=(180, 180),
-                                 slot_cap=min(shelf.SLOT_CAP, max(BATCH, 1024)))
-    else:
-        gen = pack.pack_rois(pack.roi_items(sample_blocks(paths)),
-                             batch_size=BATCH, buckets=None,
-                             pre_shrink_to=(180, 180))
+    gen = shelf.pack_shelves(sample_blocks(paths), pre_shrink_to=(180, 180),
+                             slot_cap=min(shelf.SLOT_CAP, max(BATCH, 1024)))
     return sum(1 for _ in gen)
 
 
@@ -836,22 +828,18 @@ def phase_prob(model_dir: Path, raw: Path, counts: dict) -> int:
                          progress_bar=False, classifier=Classifier(
                              model_dir, batch_size=BATCH, dtype="bfloat16"))
 
-    shelf_out, slots_out = WORK / "out_shelf", WORK / "out_slots"
+    shelf_out = WORK / "out_shelf"
     for name, env, fn in (
             ("shelf_codec_on", {}, lambda: cli(shelf_out, False)),
             ("shelf_codec_on_warm", {}, lambda: cli(shelf_out, True)),
             ("shelf_codec_off", {"SYKEPIC_WIRE_CODEC": "off"},
              lambda: cli(shelf_out, True)),
-            ("slots_codec_on", {"SYKEPIC_PACKING": "slots"},
-             lambda: cli(slots_out, False)),
             ("shelf_bf16_codec_on", {}, lambda: bf16(shelf_out)),
             ("shelf_bf16_codec_off", {"SYKEPIC_WIRE_CODEC": "off"},
              lambda: bf16(shelf_out))):
         seconds, launches = timed_run(fn, env)
-        packing = env.get("SYKEPIC_PACKING", "shelf")
-        dispatches = count_dispatches(samples, packing)
-        check_csvs(slots_out if packing == "slots" else shelf_out, counts,
-                   classes)
+        dispatches = count_dispatches(samples)
+        check_csvs(shelf_out, counts, classes)
         check(launches == dispatches,
               f"{name}: K1 launched {launches} times for {dispatches} dispatches")
         runs[name] = {"seconds": seconds, "rois_per_s": n_rois / seconds,
@@ -885,14 +873,6 @@ def phase_prob(model_dir: Path, raw: Path, counts: dict) -> int:
           "ties_within_two_quanta": int((~clear).sum()),
           "mean_top_prob": float(pg.max(1).mean())})
     emit({"phase": "bf16_contract", **bf16_contract(pg, pb)})
-
-    rates = {}
-    for dtype in ("float32", "bfloat16"):
-        clf = Classifier(model_dir, batch_size=BATCH, dtype=dtype)
-        n, seconds = clf.onchip_rate(sample_blocks(samples))
-        rates[dtype] = {"rois": n, "seconds_per_pass": seconds,
-                        "rois_per_s": n / seconds}
-    emit({"phase": "onchip_rate", "packing": "shelf", **rates})
     return runs["shelf_codec_on"]["k1_launches"]
 
 
@@ -1295,13 +1275,6 @@ def phase_pipeline(model_dir: Path, raw: Path, counts: dict) -> dict:
           "batch": BATCH, "canvas_shapes": len(set(shapes)), "runs": runs})
 
     clf = Classifier(model_dir, batch_size=BATCH)
-    torch.cuda.reset_peak_memory_stats()
-    # every dispatch of the stream resident: the same work as the e2e runs
-    n, seconds = clf.fused_onchip_rate(sample_blocks(samples), repeats=1,
-                                       max_batches=len(shapes))
-    emit({"phase": "pipeline_onchip", "rois": n, "dispatches": len(shapes),
-          "seconds_per_pass": seconds, "rois_per_s": n / seconds,
-          "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20})
     subset = samples[:11]  # the fixture and 10 x 500 ROIs
 
     def stream():
@@ -1923,7 +1896,7 @@ def top_kinds(profile: dict, n: int = 3) -> list:
 def family_prob(name: str, raw: Path, counts: dict, small: list,
                 smi: str) -> tuple[int, int]:
     """One family's model dir through ``prob`` on the card (cold, then
-    warm), its on-chip rate, a profiled warm stream, and the card against
+    warm), a profiled warm stream, and the card against
     the CPU; returns K1's and the LayerNorm kernel's launches in the cold
     run."""
     from sykepic_tpu_torch.__main__ import main
@@ -1944,7 +1917,7 @@ def family_prob(name: str, raw: Path, counts: dict, small: list,
     ln0 = layernorm.launches
     cold_s, launches = timed_run(lambda: cli(False), {})
     ln_launches = layernorm.launches - ln0
-    dispatches = count_dispatches(samples, "shelf")
+    dispatches = count_dispatches(samples)
     check_csvs(out, counts, classes)
     check(launches == dispatches and launches > 0,
           f"{name}: K1 launched {launches} times for {dispatches} dispatches")
@@ -1956,7 +1929,6 @@ def family_prob(name: str, raw: Path, counts: dict, small: list,
     check_csvs(out, counts, classes)
 
     clf = Classifier(model_dir, batch_size=BATCH)
-    n, per_pass = clf.onchip_rate(sample_blocks(samples))
 
     def stream():
         for _ in clf.classify_blocks(sample_blocks(samples)):
@@ -1982,7 +1954,6 @@ def family_prob(name: str, raw: Path, counts: dict, small: list,
           "layernorm_launches": ln_launches,
           "cold_s": cold_s, "warm_s": warm_s,
           "warm_e2e_rois_per_s": n_rois / warm_s,
-          "onchip_rois_per_s": n / per_pass,
           "device_busy_share": profile["device_busy_share"],
           "k1_share_of_device": profile["k1_share_of_device"],
           "top_device_kinds": top_kinds(profile),
@@ -2236,7 +2207,7 @@ def phase_parallel(run: dict, model_dir: Path, counts: dict,
             torch.cuda.synchronize()
             prob_s = time.perf_counter() - t0
             k1_prob = resize_pad.launches
-            dispatches = count_dispatches(samples, "shelf")
+            dispatches = count_dispatches(samples)
             check(k1_prob == dispatches, f"K1 launched {k1_prob} times on "
                   f"the mesh for {dispatches} dispatches")
 
@@ -2366,7 +2337,7 @@ def phase_pipeline_host(model_dir: Path) -> dict:
                        per_sample=HOST_PER_SAMPLE)
     samples = list(counts)
     n_rois = sum(counts.values())
-    dispatches = count_dispatches(samples, "shelf")
+    dispatches = count_dispatches(samples)
     classes = checkpoint.read_class_names(model_dir)
     out = WORK / "out_host"
     argv = ["pipeline", "-r", str(raw), "-m", str(model_dir), "-o", str(out),

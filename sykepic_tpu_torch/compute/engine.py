@@ -10,8 +10,8 @@ The temperature hack is the reference's: logits are multiplied by
 ``ln(1.3)`` before the softmax (``SOFTMAX_EXP``, reference
 ``probability.py:18,191-194``).
 
-Both packings (shelf windows, the default, and per-ROI slot canvases with
-``SYKEPIC_PACKING=slots``) hand the kernel the same ``(10, R)`` int32 slot
+Classification packs ROIs onto shelf windows; the fused pass below packs
+per-ROI slot canvases. Both hand the kernel the same ``(10, R)`` int32 slot
 metadata (:data:`sykepic_tpu_torch.ops.preprocess.META_ROWS`); the kernel
 reads each ROI straight out of the uploaded pixels at its origin.
 
@@ -21,10 +21,13 @@ the same dispatch plus the geometry feature program
 (:mod:`sykepic_tpu_torch.ops.features_device`, whose floods are K2) on the
 one device copy of each canvas.
 
-The knobs and their defaults are the JAX package's, because they set the
-outputs: ``SYKEPIC_PACKING``, ``SYKEPIC_WIRE_CODEC``,
-``SYKEPIC_D2H_COMPACT``, ``SYKEPIC_BUCKETS`` and the depths of
-:mod:`sykepic_tpu_torch.utils.depths`.
+Results always come back as the fixed-point rows, the canvas grid is the
+packer's dynamic one, and the in-flight depths are the constants of
+:mod:`sykepic_tpu_torch.utils.depths`. The classify path's one switch is
+``SYKEPIC_WIRE_CODEC`` (on unless set to ``off``).
+
+The eval model runs in the memory format its network picks
+(:meth:`sykepic_tpu_torch.models.resnet.Backbone.eval_memory_format`).
 
 Under a mesh (``Classifier(mesh=...)``, one process per card; see
 :mod:`sykepic_tpu_torch.parallel`) rank 0 decodes, packs and drains as
@@ -35,8 +38,9 @@ shards it (``sykepic_tpu/compute/engine.py:776-782``):
 - shelf windows (or their wire payload, decoded on every rank) and the
   ``(10, R)`` slot metadata are broadcast, and data rank ``d`` takes slot
   columns ``[d R/n, (d + 1) R/n)``;
-- slot canvases are scattered along the batch axis (so the wire codec
-  serves the slot path only without a mesh) with their metadata columns;
+- the fused pass's slot canvases are scattered along the batch axis (so
+  the wire codec serves them only without a mesh) with their metadata
+  columns;
 - every rank runs K1 and the network (and, in the fused pass, the feature
   program with K2) on its share; the result rows are gathered to rank 0.
 
@@ -48,12 +52,10 @@ of one data row along a ``model`` axis hold the same share.
 
 from __future__ import annotations
 
-import itertools
 import math
 import os
 import queue
 import threading
-import time
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
@@ -61,14 +63,12 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch import nn
 
 from .. import device as device_mod
 from .. import parallel
 from ..ingest import pack, shelf, wirecodec
 from ..models import checkpoint
-from ..models.convnext import LayerNorm2d, Permute
-from ..ops import features_device, layernorm, preprocess, wiredecode
+from ..ops import features_device, preprocess, wiredecode
 from ..train import config as train_config
 from ..utils import logger, profiling
 from ..utils.depths import FUSED_PIPELINE_DEPTH, PIPELINE_DEPTH
@@ -84,34 +84,12 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _NONFINITE_SENTINEL = (1 << 17) - 1
 
 # the kinds of a mesh dispatch's header (Classifier.follow)
-_RELEASE, _SHELF, _SHELF_WIRE, _SLOTS, _FUSED = range(5)
+_RELEASE, _SHELF, _SHELF_WIRE, _FUSED = range(4)
 _HEADER = 6  # int64 words: the kind, then up to five sizes
 
 
 def _env_on(name: str) -> bool:
     return os.environ.get(name, "on").lower() not in ("off", "0", "no")
-
-
-def _eval_memory_format(model, dtype) -> torch.memory_format:
-    """The memory format the eval model runs in. Every float32 network of
-    dense and grouped convolutions runs in the contiguous NCHW format: with
-    TF32 off cuDNN's float32 convolutions are NCHW kernels, which a
-    channels_last model wraps in a transpose of their input and another of
-    their output. channels_last stays for bfloat16, whose tensor-core
-    convolutions are NHWC kernels; for a network whose blocks compute in
-    NHWC (ConvNeXt's :class:`LayerNorm2d` and :class:`Permute`, whose
-    permutes are free views only under channels_last); and for a network
-    with depthwise convolutions, which cuDNN runs as NHWC kernels and NCHW
-    hands to ATen's slower depthwise kernels (on an H100, an
-    EfficientNet-B0 dispatch of 1,024 slots took 88.8 ms of device time in
-    NCHW against 81.3 ms channels_last, transposes included)."""
-    def nhwc(m):
-        return isinstance(m, (LayerNorm2d, Permute)) or (
-            isinstance(m, nn.Conv2d) and 1 < m.groups == m.in_channels)
-
-    if dtype == torch.bfloat16 or any(map(nhwc, model.modules())):
-        return torch.channels_last
-    return torch.contiguous_format
 
 
 def _pack_probs_u16(p: torch.Tensor) -> torch.Tensor:
@@ -166,8 +144,8 @@ class Classifier:
         Directory with ``config.ini``, ``class_names.txt`` and
         ``best_state.msgpack`` (or a reference ``best_state.pth``).
     batch_size : int
-        Slot-path batch size; it also raises the shelf path's slot bound
-        above its 1024 floor.
+        The fused pass's slot batch size; it also raises the shelf slot
+        bound of classification above its 1024 floor.
     dtype : str
         "float32" (TF32 off in cuDNN and cuBLAS, so convolutions keep full
         float32) or "bfloat16" (autocast; the kernel writes bf16 pixels).
@@ -182,8 +160,7 @@ class Classifier:
     """
 
     def __init__(self, model_dir, batch_size: int = 256,
-                 dtype: str = "float32", buckets="auto", device=None,
-                 mesh=None):
+                 dtype: str = "float32", device=None, mesh=None):
         self.device = device_mod.resolve(device)
         self.mesh = mesh
         if mesh is not None:
@@ -196,11 +173,6 @@ class Classifier:
                     f"batch_size {batch_size} not divisible by the data "
                     f"mesh axis ({n_data})")
         model_dir = Path(model_dir)
-        if buckets == "auto":
-            # None = dynamic fine grid; SYKEPIC_BUCKETS=fixed selects the
-            # bounded list of canvas shapes
-            mode = os.environ.get("SYKEPIC_BUCKETS", "grid").lower()
-            buckets = pack.DEFAULT_BUCKETS if mode == "fixed" else None
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
         self.model_dir = model_dir
@@ -208,7 +180,6 @@ class Classifier:
         self.config = train_config.read_config(model_dir / "config.ini")
         self.spec = train_config.get_preprocess_spec(self.config)
         self.batch_size = batch_size
-        self.buckets = buckets
         self.dtype = _DTYPES[dtype]
         if self.device.type == "cuda" and self.dtype == torch.float32:
             # cuDNN convolutions default to TF32 (about three digits),
@@ -220,15 +191,11 @@ class Classifier:
         model.load_state_dict(checkpoint.load_model_state(
             model_dir, dropout, network=model.network), strict=True)
         # weights go to the device once, in the format their kernels read
-        self.memory_format = _eval_memory_format(model, self.dtype)
+        self.memory_format = model.eval_memory_format(self.dtype)
         log.info(f"{model.network} runs in {dtype} as "
                  f"{str(self.memory_format).removeprefix('torch.')}")
         self.model = model.to(self.device,
                               memory_format=self.memory_format).eval()
-        # the LayerNorm kernel's launches when the last dispatch was counted
-        self._layernorm_seen = layernorm.launches
-        self.d2h_compact = _env_on("SYKEPIC_D2H_COMPACT")
-        self.packing = os.environ.get("SYKEPIC_PACKING", "shelf").lower()
         self._batch_multiple = parallel.data_axis_size(mesh)
         if parallel.has_model_axis(mesh):
             # tensor parallel: wide late-stage kernels shard over the model
@@ -263,8 +230,8 @@ class Classifier:
         return self._put(host)
 
     def _forward(self, pixels: torch.Tensor, meta: torch.Tensor):
-        """Device tensors -> probability rows (fixed-point when
-        ``d2h_compact``): K1, the network, the temperature softmax."""
+        """Device tensors -> fixed-point probability rows: K1, the
+        network, the temperature softmax."""
         spec = self.spec
         x = preprocess.eval_preprocess_meta(
             pixels, meta, target_h=spec.target_h, target_w=spec.target_w,
@@ -281,7 +248,7 @@ class Classifier:
             logits = self.model(x)
         probs = torch.softmax(
             logits.float() * math.log(SOFTMAX_EXP), dim=-1)
-        return _pack_probs_u16(probs) if self.d2h_compact else probs
+        return _pack_probs_u16(probs)
 
     def _shelf_meta(self, batch) -> np.ndarray:
         """Slot metadata for one shelf batch as ONE (10, R) int32 array
@@ -340,17 +307,6 @@ class Classifier:
             return self._forward(self._pixels(batch, batch.windows),
                                  self._put(meta))
 
-    def dispatch_packed(self, batch: pack.PackedBatch, meta=None):
-        """Start inference for one slot-packed batch; returns the result
-        on the device without waiting for it."""
-        if meta is None:
-            meta = self._host_meta(batch)
-        with self.timer.stage("device.dispatch"), torch.inference_mode():
-            if self.mesh is not None:
-                return self._lead_slots(_SLOTS, batch.canvas, meta)[0]
-            return self._forward(self._pixels(batch, batch.canvas),
-                                 self._put(meta))
-
     # -- mesh ----------------------------------------------------------------
 
     @property
@@ -358,11 +314,6 @@ class Classifier:
         """Whether this process serves rank 0's dispatches (a mesh rank
         other than 0) rather than feeding its own."""
         return self.mesh is not None and parallel.rank() != 0
-
-    def _single(self, what: str) -> None:
-        if self.mesh is not None:
-            raise ValueError(f"{what} measures one device: build the "
-                             "Classifier without a mesh")
 
     def _header(self, kind: int = _RELEASE, *sizes) -> list:
         """Broadcast rank 0's header (``kind`` and sizes); returns it."""
@@ -427,14 +378,15 @@ class Classifier:
         _, _, cols = self._share(meta, rebase=False)
         return self._gather(self._forward(pixels, cols))
 
-    def _lead_slots(self, kind: int, canvas: np.ndarray, meta: np.ndarray):
-        """Rank 0's half of a slot (or fused) dispatch under a mesh."""
-        self._header(kind, *canvas.shape)
-        return self._serve_slots(kind, canvas.shape, canvas,
+    def _lead_slots(self, canvas: np.ndarray, meta: np.ndarray):
+        """Rank 0's half of a fused dispatch under a mesh."""
+        self._header(_FUSED, *canvas.shape)
+        return self._serve_slots(canvas.shape, canvas,
                                  self._bcast(meta, None, None))
 
-    def _serve_slots(self, kind, shape, canvas, meta):
-        """Scatter the canvas rows, run this rank's share, gather."""
+    def _serve_slots(self, shape, canvas, meta):
+        """Scatter the canvas rows, run both programs on this rank's
+        share, gather."""
         lo, hi, cols = self._share(meta, rebase=True)
         mine = torch.empty((hi - lo, *shape[1:]), dtype=torch.uint8,
                            device=self.device)
@@ -446,11 +398,9 @@ class Classifier:
                     for r in range(dist.get_world_size())]
             chunks = [self._put(canvas[a:b]) for a, b in rows]
         dist.scatter(mine, chunks, src=0)
-        out = [self._gather(self._forward(mine, cols))]
-        if kind == _FUSED:
-            out.append(self._gather(features_device.device_features(
-                mine, cols[3], cols[4])))
-        return out
+        return (self._gather(self._forward(mine, cols)),
+                self._gather(features_device.device_features(
+                    mine, cols[3], cols[4])))
 
     def follow(self) -> None:
         """Serve rank 0's dispatches until it calls :meth:`release`: the
@@ -464,24 +414,23 @@ class Classifier:
                 if kind == _RELEASE:
                     return
                 with self.timer.stage("device.dispatch"):
+                    if kind == _FUSED:
+                        shape = tuple(sizes[:3])
+                        self._serve_slots(shape, None, self._bcast(
+                            None, (len(preprocess.META_ROWS), shape[0]),
+                            torch.int32))
+                        continue
                     if kind == _SHELF:
                         nc, h, w, r = sizes[:4]
                         pixels = self._bcast(None, (nc, h, w), torch.uint8)
-                    elif kind == _SHELF_WIRE:
+                    else:
                         nc, h, wh, n_exc, r = sizes
                         pixels = wiredecode.decode_tensors(
                             self._bcast(None, (nc, h, wh), torch.uint8),
                             self._bcast(None, (n_exc,), torch.uint8),
                             self._bcast(None, (nc,), torch.uint8))
-                    if kind in (_SHELF, _SHELF_WIRE):
-                        self._serve_shelf(pixels, self._bcast(
-                            None, (len(preprocess.META_ROWS), r),
-                            torch.int32))
-                        continue
-                    shape = tuple(sizes[:3])
-                    self._serve_slots(kind, shape, None, self._bcast(
-                        None, (len(preprocess.META_ROWS), shape[0]),
-                        torch.int32))
+                    self._serve_shelf(pixels, self._bcast(
+                        None, (len(preprocess.META_ROWS), r), torch.int32))
 
     def release(self) -> None:
         """Rank 0: end the other ranks' :meth:`follow` (a no-op without a
@@ -493,9 +442,7 @@ class Classifier:
         rows = rows.numpy() if torch.is_tensor(rows) else np.asarray(rows)
         if n is not None:
             rows = rows[:n]
-        if self.d2h_compact:
-            return unpack_probs_u16(rows, len(self.classes))
-        return rows
+        return unpack_probs_u16(rows, len(self.classes))
 
     def result_probs(self, device_result, n: int | None = None):
         """A dispatch's result as (B, num_classes) float32 probabilities
@@ -527,38 +474,26 @@ class Classifier:
         return (hosts[0] if len(hosts) == 1 else tuple(hosts)), event
 
     def _packed(self, tagged_rois):
-        """The batches of the classify stream: shelf windows or slot
-        canvases, with ROIs over the network input pre-shrunk on the host
-        (the device would downsample them anyway; fewer bytes to upload)."""
-        shrink = (self.spec.target_h, self.spec.target_w)
-        modes = self.spec.border == "mode"
-        if self.packing == "shelf":
-            return shelf.pack_shelves(
-                tagged_rois, pre_shrink_to=shrink,
-                batch_multiple=self._batch_multiple, compute_modes=modes,
-                slot_cap=self._shelf_slot_cap)
-        # the slot packer works per ROI; columnar RoiBlocks unwrap here
-        return pack.pack_rois(
-            pack.roi_items(tagged_rois), batch_size=self.batch_size,
-            buckets=self.buckets, batch_multiple=self._batch_multiple,
-            pre_shrink_to=shrink, compute_modes=modes)
+        """The shelf batches of the classify stream, with ROIs over the
+        network input pre-shrunk on the host (the device would downsample
+        them anyway; fewer bytes to upload)."""
+        return shelf.pack_shelves(
+            tagged_rois, pre_shrink_to=(self.spec.target_h,
+                                        self.spec.target_w),
+            batch_multiple=self._batch_multiple,
+            compute_modes=self.spec.border == "mode",
+            slot_cap=self._shelf_slot_cap)
 
     def _prepared(self, tagged_rois):
         """Pack ROIs and compute host metadata on a producer thread,
         yielding ``(batch, meta)`` ready to dispatch."""
-        host_meta = (self._shelf_meta if self.packing == "shelf"
-                     else self._host_meta)
-
         def meta_fn(batch):
-            # slot canvases are scattered over a mesh, so the codec serves
-            # them only without one; shelf windows keep it either way
-            if self.wire_codec and (self.mesh is None
-                                    or self.packing == "shelf"):
+            if self.wire_codec:
                 self._encode_wire(batch)
-            return host_meta(batch)
+            return self._shelf_meta(batch)
 
         return self._produce_on_thread(self._packed(tagged_rois), meta_fn,
-                                       f"sykepic-{self.packing}")
+                                       "sykepic-shelf")
 
     def _produce_on_thread(self, gen, meta_fn, name: str,
                            workers: int | None = None):
@@ -644,14 +579,10 @@ class Classifier:
                          else "engine.wire_raw")
 
     def _count_dispatch(self, batch, meta) -> None:
-        """Count one dispatch, once it is made: its ROIs, its slots
-        (padding included) and the LayerNorm kernel's launches since the
-        last dispatch was counted (ConvNeXt's 22 a forward on the card, 0
-        for networks without LayerNorm or on ATen's path)."""
+        """Count one dispatch, once it is made: its ROIs and its slots
+        (padding included)."""
         self.timer.count("engine.rois", batch.n_valid)
         self.timer.count("engine.slots", meta.shape[1])
-        seen, self._layernorm_seen = self._layernorm_seen, layernorm.launches
-        self.timer.count("layernorm.launches", layernorm.launches - seen)
 
     def _drain_block(self, batch, host_rows, event):
         """Drain-thread half of a dispatch: wait for its rows, unpack the
@@ -685,14 +616,12 @@ class Classifier:
         dispatched, behind a CUDA event, and one drain thread waits on the
         events in order while this thread dispatches the next batches.
         """
-        dispatch = (self.dispatch_shelf if self.packing == "shelf"
-                    else self.dispatch_packed)
         drainer = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="sykepic-drain")
         in_flight: deque = deque()
         try:
             for batch, meta in self._prepared(tagged_rois):
-                rows = dispatch(batch, meta)
+                rows = self.dispatch_shelf(batch, meta)
                 self._count_dispatch(batch, meta)
                 host_rows, event = self._start_download(rows)
                 in_flight.append(drainer.submit(
@@ -712,48 +641,15 @@ class Classifier:
                 yield int(sidx[i]), int(rids[i]), probs[i]
         self.timer.report()
 
-    def onchip_rate(self, tagged_rois, repeats: int = 4,
-                    max_batches: int = 32):
-        """ROIs/s of the device work ALONE: upload and download excluded.
-
-        Packs the stream exactly like :meth:`classify_rois`, makes every
-        batch's pixels and metadata device-resident first (raw pixels: the
-        wire decode is not timed), then runs all dispatches back to back
-        ``repeats`` times between two synchronizations. Every batch stays
-        resident for the probe, so the stream is capped at ``max_batches``
-        dispatches. Returns ``(n_rois, seconds_per_pass)``.
-        """
-        self._single("onchip_rate")
-        args_list = []
-        n_rois = 0
-        for batch, meta in itertools.islice(self._prepared(tagged_rois),
-                                            max_batches):
-            # pooled window buffers return to the pool only when drained,
-            # which never happens here, so the packer cannot overwrite them
-            host = batch.windows if self.packing == "shelf" else batch.canvas
-            args_list.append((self._put(host), self._put(meta)))
-            n_rois += batch.n_valid
-        with torch.inference_mode():
-            for args in args_list:  # warm pass: cuDNN plans, allocator
-                self._forward(*args)
-            self._sync()
-            t0 = time.perf_counter()
-            for _ in range(repeats):
-                for args in args_list:
-                    self._forward(*args)
-            self._sync()
-        return n_rois, (time.perf_counter() - t0) / max(repeats, 1)
-
     def _prepared_fused(self, tagged_rois):
         """The slot-packed stream of the fused classify+features pass, with
         host metadata from a producer thread: no pre-shrink (area and
         biovolume are in original pixels) and no tail consolidation (moving
         a ROI to a bigger canvas changes its FFT window, so its features
-        would depend on the stream). Slots whatever ``SYKEPIC_PACKING``
-        says, as in JAX."""
+        would depend on the stream)."""
         gen = pack.pack_rois(
             pack.roi_items(tagged_rois), batch_size=self.batch_size,
-            buckets=self.buckets, batch_multiple=self._batch_multiple,
+            buckets=None, batch_multiple=self._batch_multiple,
             pre_shrink_to=None, compute_modes=self.spec.border == "mode",
             consolidate_tails=False)
 
@@ -770,7 +666,7 @@ class Classifier:
         two device results without waiting for them."""
         with self.timer.stage("device.dispatch"), torch.inference_mode():
             if self.mesh is not None:
-                return tuple(self._lead_slots(_FUSED, batch.canvas, meta))
+                return self._lead_slots(batch.canvas, meta)
             # uploaded (or wire-decoded) ONCE, shared by both programs
             canvas = self._pixels(batch, batch.canvas)
             probs = self._forward(canvas, self._put(meta))
@@ -818,61 +714,52 @@ class Classifier:
             yield from drain(*in_flight.popleft())
         self.timer.report()
 
-    def fused_onchip_rate(self, tagged_rois, repeats: int = 2,
-                          max_batches: int = 32):
-        """ROIs/s of the fused pass's device work alone: the stream packed
-        as :meth:`classify_and_feature_rois` packs it, every canvas and its
-        metadata made resident first (raw pixels), then both programs of
-        every dispatch back to back ``repeats`` times between two
-        synchronizations. Returns ``(n_rois, seconds_per_pass)``."""
-        self._single("fused_onchip_rate")
-        args_list = []
-        n_rois = 0
-        for batch, meta in itertools.islice(
-                self._prepared_fused(tagged_rois), max_batches):
-            args_list.append(tuple(self._put(a) for a in (
-                batch.canvas, meta, batch.heights, batch.widths)))
-            n_rois += batch.n_valid
+    def _zeros_wire(self, shape):
+        """With the wire codec on, a forced payload of zeros but one pixel
+        (which forces an exception stream), so a warm-up dispatch warms
+        the decode too; else None."""
+        if not self.wire_codec:
+            return None
+        wired = np.zeros(shape, np.uint8)
+        wired[0, 0, 0] = 200
+        return wirecodec.encode(wired, force=True)
 
-        def one_pass():
-            for canvas, meta, heights, widths in args_list:
-                self._forward(canvas, meta)
-                features_device.device_features(canvas, heights, widths)
-
-        with torch.inference_mode():
-            one_pass()  # warm: cuDNN plans, cuFFT plans, the kernels' build
-            self._sync()
-            t0 = time.perf_counter()
-            for _ in range(repeats):
-                one_pass()
-            self._sync()
-        return n_rois, (time.perf_counter() - t0) / max(repeats, 1)
-
-    def precompile(self, canvas_shapes, fused: bool = False) -> int:
-        """Warm up each shape key with one all-zeros dispatch:
-        ``(B, Hc, Wc)`` canvas shapes for the slot path, ``(n_windows,
-        n_slots)`` pairs for the shelf path (snapped onto the ladders
-        pack_shelves emits on). Torch runs eagerly, so nothing compiles;
-        the first dispatch of a shape picks its cuDNN algorithms and grows
-        the allocator's pools. With ``fused`` each slot shape also runs the
-        feature program once, which builds K2 and makes the cuFFT plans.
-        Returns the number of dispatches."""
-        self._single("precompile")
-        slot_ceil = shelf.floor_slots(self._shelf_slot_cap,
-                                      self._batch_multiple)
-        keys = {
-            (shelf.pad_nc(k[0]),
-             min(shelf.pad_slots(k[1], self._batch_multiple), slot_ceil))
-            if len(k) == 2 else tuple(k)
-            for k in canvas_shapes
-        }
+    def precompile(self, shapes, fused: bool = False) -> int:
+        """Warm up each shape key with one all-zeros dispatch: ``(n_windows,
+        n_slots)`` pairs of classification's shelf program (snapped onto
+        the ladders pack_shelves emits on), or with ``fused`` the ``(B, Hc,
+        Wc)`` slot canvas shapes of the fused pass, each of which also runs
+        the feature program once (building K2 and the cuFFT plans). Torch
+        runs eagerly, so nothing compiles; the first dispatch of a shape
+        picks its cuDNN algorithms and grows the allocator's pools. Returns
+        the number of dispatches."""
+        if self.mesh is not None:
+            raise ValueError("precompile warms one device: build the "
+                             "Classifier without a mesh")
         results = []
-        for key in sorted(keys):
-            if len(key) == 2:  # shelf program: (window count, slot count)
-                nc, r = key
-                sbatch = shelf.ShelfBatch(
-                    windows=np.zeros((nc, shelf.WIN_H, shelf.WIN_W),
-                                     np.uint8),
+        if fused:
+            for b, hc, wc in sorted({tuple(k) for k in shapes}):
+                batch = pack.PackedBatch(
+                    canvas=np.zeros((b, hc, wc), np.uint8),
+                    heights=np.ones(b, np.int32),
+                    widths=np.ones(b, np.int32),
+                    roi_ids=np.zeros(b, np.int64),
+                    sample_idx=np.zeros(b, np.int32),
+                    n_valid=0,
+                    modes=np.zeros(b, np.uint8),
+                    wire=self._zeros_wire((b, hc, wc)),
+                )
+                results.extend(self._dispatch_fused(
+                    batch, self._host_meta(batch)))
+        else:
+            slot_ceil = shelf.floor_slots(self._shelf_slot_cap,
+                                          self._batch_multiple)
+            keys = {(shelf.pad_nc(nc), min(shelf.pad_slots(
+                r, self._batch_multiple), slot_ceil)) for nc, r in shapes}
+            for nc, r in sorted(keys):
+                windows = np.zeros((nc, shelf.WIN_H, shelf.WIN_W), np.uint8)
+                results.append(self.dispatch_shelf(shelf.ShelfBatch(
+                    windows=windows,
                     win_idx=np.zeros(r, np.int32),
                     y0=np.zeros(r, np.int32),
                     x0=np.zeros(r, np.int32),
@@ -882,33 +769,7 @@ class Classifier:
                     sample_idx=np.zeros(r, np.int32),
                     n_valid=0,
                     modes=np.zeros(r, np.uint8),
-                )
-                if self.wire_codec:
-                    # warm the decode too (one nonzero pixel forces an
-                    # exception stream)
-                    wired = np.zeros_like(sbatch.windows)
-                    wired[0, 0, 0] = 200
-                    sbatch.wire = wirecodec.encode(wired, force=True)
-                results.append(self.dispatch_shelf(sbatch))
-                continue
-            b, hc, wc = key
-            batch = pack.PackedBatch(
-                canvas=np.zeros((b, hc, wc), np.uint8),
-                heights=np.ones(b, np.int32),
-                widths=np.ones(b, np.int32),
-                roi_ids=np.zeros(b, np.int64),
-                sample_idx=np.zeros(b, np.int32),
-                n_valid=0,
-                modes=np.zeros(b, np.uint8),
-            )
-            if self.wire_codec:
-                wired = np.zeros((b, hc, wc), np.uint8)
-                wired[0, 0, 0] = 200
-                batch.wire = wirecodec.encode(wired, force=True)
-            if fused:
-                results.extend(self._dispatch_fused(
-                    batch, self._host_meta(batch)))
-            else:
-                results.append(self.dispatch_packed(batch))
+                    wire=self._zeros_wire(windows.shape),
+                )))
         self._sync()
         return len(results)

@@ -164,10 +164,9 @@ def _sample_blocks(sample_paths):
 def precompile_for_samples(sample_paths, clf: Classifier) -> int:
     """Warm up every dispatch shape the given samples will produce through
     :meth:`Classifier.classify_rois`: packs them exactly like that path to
-    list the shapes, then dispatches one zeros batch per shape. Returns the
-    number of shapes."""
-    shapes = {(b.windows.shape[0], len(b.win_idx)) if clf.packing == "shelf"
-              else b.canvas.shape
+    list the ``(n_windows, n_slots)`` shelf keys, then dispatches one zeros
+    batch per key. Returns the number of keys."""
+    shapes = {(b.windows.shape[0], len(b.win_idx))
               for b in clf._packed(_sample_blocks(sample_paths))}
     return clf.precompile(sorted(shapes))
 

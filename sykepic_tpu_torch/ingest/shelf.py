@@ -241,10 +241,9 @@ class _Shelver:
 # Window-tensor pool, keyed by padded window count: recycling a drained
 # dispatch's 6.3 MB buffer makes the cost a fill instead of fresh mmap page
 # faults for the whole tensor. deque append/pop are GIL-atomic; the
-# capacity tracks the engine's in-flight pipeline depths (utils/depths.py —
-# the ONE place both env knobs are read) plus slack, so neither queue,
-# however overridden, can overflow the pool and silently drop buffers back
-# to the page-fault path.
+# capacity tracks the engine's in-flight pipeline depths (utils/depths.py)
+# plus slack, so neither queue can overflow the pool and silently drop
+# buffers back to the page-fault path.
 from ..utils.depths import FUSED_PIPELINE_DEPTH, PIPELINE_DEPTH
 
 POOL_CAP = max(PIPELINE_DEPTH, FUSED_PIPELINE_DEPTH) + 4

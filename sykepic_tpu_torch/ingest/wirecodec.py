@@ -98,7 +98,7 @@ class WirePayload:
 # fresh mmap page faults. The engine recycles a payload
 # once its dispatch has drained (upload provably complete). deque ops
 # are GIL-atomic; the capacity tracks the engine's in-flight pipeline
-# depth (same env default as engine.PIPELINE_DEPTH) plus slack.
+# depths (utils/depths.py) plus slack.
 from .shelf import POOL_CAP
 
 _POOL: dict[object, deque] = defaultdict(lambda: deque(maxlen=POOL_CAP))

@@ -168,6 +168,12 @@ class ConvNeXt(Backbone):
         self.features = nn.Sequential(*layers)
         self.head = Head(dims[-1], head, num_classes, dropout)
 
+    def eval_memory_format(self, dtype) -> torch.memory_format:
+        """channels_last whatever the dtype: the blocks compute in NHWC
+        (:class:`LayerNorm2d`, :class:`Permute`), whose permutes are free
+        views only under channels_last."""
+        return torch.channels_last
+
     def embed(self, x):
         check_min_input(x, "convnext", self.MIN_INPUT,
                         "the stem and downsample strides empty the feature "

@@ -22,7 +22,7 @@ run:
   network unsharded, within 2e-5 relative and 2e-6 absolute, as
   ``tests/test_parallel_tp.py`` holds JAX's;
 - inference on the fixture sample with a 64x64, 8-class model directory:
-  ``prob`` (shelf packing, and slot packing) through ``Classifier(mesh=)``,
+  ``prob`` (shelf packing) through ``Classifier(mesh=)``,
   probabilities within 1.2e-5 (``:293``) with the same ids and argmax; the
   fused ``pipeline --device-features`` pass, features within 1e-5
   relative (``:316``).
@@ -199,17 +199,14 @@ def legs(device, mesh, out_dir: Path, n: int, lead: bool = True) -> None:
     if parallel.has_model_axis(mesh):
         res["tp_forward"] = tp_forward(mesh, t.device)
 
-    # -- inference: prob (shelf, then slots) and the fused pass
+    # -- inference: prob (shelf windows) and the fused pass (slot canvases)
     mdir = build_model_dir(out_dir.parent / f"model_{parallel.rank()}",
                            seeded)
     infer_bs = n * max(1, -(-4 // n))
-    for packing in ("shelf", "slots"):
-        clf = probability.prepare_model(mdir, batch_size=infer_bs,
-                                        device=device, mesh=mesh)
-        clf.packing = packing
-        probability.main([FIXTURE], mdir, out_dir / f"prob_{packing}",
-                         infer_bs, force=True, progress_bar=False,
-                         classifier=clf)
+    clf = probability.prepare_model(mdir, batch_size=infer_bs,
+                                    device=device, mesh=mesh)
+    probability.main([FIXTURE], mdir, out_dir / "prob_shelf", infer_bs,
+                     force=True, progress_bar=False, classifier=clf)
     pipeline.main([FIXTURE], clf, out_dir / "fused", device_features=True,
                   force=True)
     if mesh is not None:
@@ -318,16 +315,15 @@ def compare(ref_dir: Path, got_dir: Path) -> dict:
     out["eval_preds_equal"] = bool(np.array_equal(ref["eval"]["preds"],
                                                   got["eval"]["preds"]))
     prob = {}
-    for packing in ("shelf", "slots"):
-        for path in csv_paths(ref_dir, f"prob_{packing}"):
-            a = read_prob_csv(path)
-            b = read_prob_csv(Path(got_dir) / path.relative_to(ref_dir))
-            if a.keys() != b.keys() or not a:
-                raise AssertionError(f"{packing}: ROI ids {sorted(b)} != "
-                                     f"{sorted(a)}")
-            if any(np.argmax(a[r]) != np.argmax(b[r]) for r in a):
-                raise AssertionError(f"{packing}: argmax differs")
-            prob[packing] = max(float(np.abs(a[r] - b[r]).max()) for r in a)
+    for path in csv_paths(ref_dir, "prob_shelf"):
+        a = read_prob_csv(path)
+        b = read_prob_csv(Path(got_dir) / path.relative_to(ref_dir))
+        if a.keys() != b.keys() or not a:
+            raise AssertionError(f"shelf: ROI ids {sorted(b)} != "
+                                 f"{sorted(a)}")
+        if any(np.argmax(a[r]) != np.argmax(b[r]) for r in a):
+            raise AssertionError("shelf: argmax differs")
+        prob["shelf"] = max(float(np.abs(a[r] - b[r]).max()) for r in a)
     out["prob_max"] = prob
     feat = 0.0
     for path in csv_paths(ref_dir, "fused"):

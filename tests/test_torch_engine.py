@@ -1,14 +1,14 @@
 """The slice as a whole: the port's ``Classifier(device="cpu")`` against the
 JAX ``Classifier`` at full width (the ResNet18 of
 ``tests/model/resnet18_ref/config.ini``, 3x180x180, head 256,128, 50
-classes) on the fixture sample, for shelf and slot packing with the wire
-codec on and off.
+classes) on the fixture sample, packed on shelves, with the wire codec on
+and off.
 
 Bounds: the same ROI ids, the same argmax, and probabilities within
 1.2e-5, one 1e-5 quantum of the fixed-point rows (``__graft_entry__.py``'s
 bound): conv sums run in another order, so a value near a rounding edge
 may land on the neighbouring quantum. The codec is lossless, so both of
-the port's codec settings are held against one JAX run per packing.
+the port's codec settings are held against one JAX run.
 """
 
 import os
@@ -21,6 +21,8 @@ from torch_model_dirs import family_model_dir
 from sykepic_tpu.compute import engine as jengine
 from sykepic_tpu.ingest import ifcb
 from sykepic_tpu_torch.compute import engine
+from sykepic_tpu_torch.ingest import shelf
+from sykepic_tpu_torch.models import registry
 from sykepic_tpu_torch.ops import preprocess, resize_pad
 from sykepic_tpu_torch.utils import profiling
 
@@ -54,22 +56,20 @@ def _classify(clf):
     return sorted((rid, p) for _, rid, p in clf.classify_rois(_tagged()))
 
 
-@pytest.fixture(scope="module", params=["shelf", "slots"])
+@pytest.fixture(scope="module", params=["shelf"])
 def jax_run(request, model_dir):
-    packing = request.param
-    res = _with_env({"SYKEPIC_PACKING": packing}, lambda: _classify(
-        jengine.Classifier(model_dir, batch_size=16)))
-    return packing, res
+    # the JAX Classifier packs shelves unless told otherwise
+    return _classify(jengine.Classifier(model_dir, batch_size=16))
 
 
 @pytest.mark.parametrize("codec", ["on", "off"])
 def test_classifier_matches_jax(jax_run, model_dir, codec):
-    packing, want = jax_run
-    env = {"SYKEPIC_PACKING": packing, "SYKEPIC_WIRE_CODEC": codec}
-    clf = _with_env(env, lambda: engine.Classifier(model_dir, batch_size=16,
-                                                   device="cpu"))
+    want = jax_run
+    clf = _with_env({"SYKEPIC_WIRE_CODEC": codec},
+                    lambda: engine.Classifier(model_dir, batch_size=16,
+                                              device="cpu"))
     assert clf.device == torch.device("cpu")
-    assert (clf.packing, clf.wire_codec) == (packing, codec == "on")
+    assert clf.wire_codec == (codec == "on")
     clf.timer = profiling.StageTimer(enabled=True)
     before = resize_pad.launches
     got = _classify(clf)
@@ -81,7 +81,7 @@ def test_classifier_matches_jax(jax_run, model_dir, codec):
     assert gp.shape == (2, 50) and np.isfinite(gp).all()
     np.testing.assert_array_equal(gp.argmax(1), wp.argmax(1))
     assert np.abs(gp - wp).max() <= QUANTUM_BOUND
-    if codec == "on" and packing == "shelf":
+    if codec == "on":
         assert clf.timer.totals["engine.wire_encoded"] >= 1
 
 
@@ -120,34 +120,28 @@ def test_zero_row_unpack():
     assert out.shape == (0, 50) and out.dtype == np.float32
 
 
-def test_f32_rows_when_compaction_off(model_dir):
-    clf = _with_env({"SYKEPIC_D2H_COMPACT": "off",
-                     "SYKEPIC_PACKING": "slots"},
-                    lambda: engine.Classifier(model_dir, batch_size=4,
-                                              device="cpu"))
-    assert not clf.d2h_compact
-    res = _classify(clf)
-    p = np.stack([r[1] for r in res])
-    assert p.dtype == np.float32
-    np.testing.assert_allclose(p.sum(1), 1.0, atol=1e-5)
-
-
 def test_precompile_and_onchip_rate_on_cpu(model_dir):
-    clf = _with_env({"SYKEPIC_PACKING": "slots"},
-                    lambda: engine.Classifier(model_dir, batch_size=2,
-                                              device="cpu"))
-    assert clf.precompile([(2, 64, 128)]) == 1
-    n, seconds = clf.onchip_rate(_tagged(), repeats=1)
-    assert n == 2 and seconds > 0
+    """precompile dispatches once per distinct shelf key, snapped onto
+    the packer's ladders (two keys that snap alike warm one shape)."""
+    clf = engine.Classifier(model_dir, batch_size=2, device="cpu")
+    seen = []
+    inner = clf.dispatch_shelf
+
+    def spy(batch, meta=None):
+        seen.append((batch.windows.shape[0], len(batch.win_idx)))
+        return inner(batch, meta)
+
+    clf.dispatch_shelf = spy
+    assert clf.precompile([(1, 2), (1, 3)]) == 1
+    assert seen == [(shelf.pad_nc(1), shelf.SLOT_MIN)]
 
 
 def test_precompile_for_samples_warms_the_stream_shapes(model_dir):
     from sykepic_tpu_torch.compute import probability
 
-    clf = _with_env({"SYKEPIC_PACKING": "slots"},
-                    lambda: engine.Classifier(model_dir, batch_size=2,
-                                              device="cpu"))
-    shapes = {b.canvas.shape for b in clf._packed(iter(_tagged()))}
+    clf = engine.Classifier(model_dir, batch_size=2, device="cpu")
+    shapes = {(b.windows.shape[0], len(b.win_idx))
+              for b in clf._packed(iter(_tagged()))}
     assert probability.precompile_for_samples([FIXTURE], clf) == len(shapes)
 
 
@@ -194,6 +188,32 @@ def test_eval_memory_format_follows_dtype_and_layers(model_dir, tmp_path,
         clf._forward(*_seeded_slots(clf, 0))
     (x,) = seen
     assert x.is_contiguous(memory_format=want)
+
+
+@pytest.mark.parametrize("name,dtype,want", [
+    # depthwise convolutions
+    ("mobilenet_v3_small", "float32", torch.channels_last),
+    ("efficientnet_v2_s", "float32", torch.channels_last),
+    ("alexnet", "float32", torch.contiguous_format),
+    ("vgg16_bn", "float32", torch.contiguous_format),
+    # grouped convolutions, none depthwise
+    ("resnext50_32x4d", "float32", torch.contiguous_format),
+    ("regnet_x_400mf", "float32", torch.contiguous_format),
+    # NHWC blocks
+    ("convnext_small", "float32", torch.channels_last),
+    # bfloat16 runs channels_last whatever the layers
+    ("resnet50", "bfloat16", torch.channels_last),
+    ("vgg11", "bfloat16", torch.channels_last),
+    ("efficientnet_b0", "bfloat16", torch.channels_last),
+    ("mobilenet_v3_large", "bfloat16", torch.channels_last),
+    ("convnext_tiny", "bfloat16", torch.channels_last),
+])
+def test_network_picks_its_eval_memory_format(name, dtype, want):
+    """Each family's side of the layout rule, asked of the network itself
+    (built on the meta device: no weights, no forward)."""
+    with torch.device("meta"):
+        model = registry.build_model(name, 50)
+    assert model.eval_memory_format(engine._DTYPES[dtype]) == want
 
 
 @pytest.mark.parametrize("name", ["resnet18", "efficientnet_b0"])

@@ -123,7 +123,7 @@ def test_dry_run_bounds(worlds, n):
     assert max(got["loss_rel"].values()) < dryrun.BOUNDS["loss_rel"]
     assert max(got["param_max"].values()) < dryrun.BOUNDS["param_max"]
     assert max(got["prob_max"].values()) < dryrun.BOUNDS["prob_max"]
-    assert set(got["prob_max"]) == {"shelf", "slots"}
+    assert set(got["prob_max"]) == {"shelf"}
     assert got["feat_rel"] < dryrun.BOUNDS["feat_rel"]
     assert got["eval_preds_equal"]
     # the dry run's inference batch (4, or 6 at 3) plus one

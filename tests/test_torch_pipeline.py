@@ -178,7 +178,3 @@ def test_fused_precompile_and_onchip_rate_on_cpu(model_dir):
     clf = engine.Classifier(model_dir, batch_size=2, device="cpu")
     # one slot shape: the classify dispatch and the feature program
     assert clf.precompile([(2, 48, 56)], fused=True) == 2
-    tagged = [(0, rid, img)
-              for rid, img in ifcb.read_sample(FIXTURE).images()]
-    n, seconds = clf.fused_onchip_rate(tagged, repeats=1)
-    assert n == 2 and seconds > 0

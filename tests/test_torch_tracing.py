@@ -28,7 +28,6 @@ from torch.profiler import ProfilerActivity, profile
 from sykepic_tpu_torch.compute import probability
 from sykepic_tpu_torch.ingest import ifcb, pack
 from sykepic_tpu_torch.models import checkpoint
-from sykepic_tpu_torch.ops import layernorm
 from sykepic_tpu_torch.train import config as tcfg
 from sykepic_tpu_torch.utils import profiling
 
@@ -189,32 +188,28 @@ def raw_dir(tmp_path_factory):
     return raw
 
 
-@pytest.fixture(scope="module", params=["shelf", "slots"])
+@pytest.fixture(scope="module", params=["shelf"])
 def prob_run(request, tiny_model, raw_dir, tmp_path_factory):
     """One profiled ``process_samples_batched`` job with an enabled timer;
-    the slot count of every dispatch is recorded as it is made."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("SYKEPIC_PACKING", request.param)
-        clf = probability.prepare_model(tiny_model, batch_size=2,
-                                        device="cpu")
+    the slot count of every shelf dispatch is recorded as it is made."""
+    clf = probability.prepare_model(tiny_model, batch_size=2, device="cpu")
     clf.timer = profiling.StageTimer(enabled=True)
     dispatched = []
-    name = "dispatch_shelf" if request.param == "shelf" else "dispatch_packed"
-    inner = getattr(clf, name)
+    inner = clf.dispatch_shelf
 
     def recording(batch, meta=None):
         dispatched.append((batch.n_valid, meta.shape[1]))
         return inner(batch, meta)
 
-    setattr(clf, name, recording)
+    clf.dispatch_shelf = recording
     samples = [raw_dir / s for s in (*SAMPLES, EMPTY)]
     out = tmp_path_factory.mktemp(f"out_{request.param}")
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         written = probability.process_samples_batched(samples, clf, out,
                                                       force=True)
-    return {"packing": request.param, "timer": clf.timer,
-            "dispatched": dispatched, "written": written,
-            "samples": samples, "out": out, "events": _events(prof)}
+    return {"timer": clf.timer, "dispatched": dispatched,
+            "written": written, "samples": samples, "out": out,
+            "events": _events(prof)}
 
 
 def test_csv_write_once_per_written_sample(prob_run):
@@ -236,9 +231,8 @@ def test_engine_slots_are_the_slots_dispatched(prob_run):
     assert timer.totals["engine.slots"] == sum(r for _, r in dispatched)
     assert timer.counts["engine.slots"] == len(dispatched)
     assert all(r >= n for n, r in dispatched)
-    if prob_run["packing"] == "shelf":
-        # the padding is counted: the shelf pads to its 64-slot floor
-        assert timer.totals["engine.slots"] == 64 > timer.totals["engine.rois"]
+    # the padding is counted: the shelf pads to its 64-slot floor
+    assert timer.totals["engine.slots"] == 64 > timer.totals["engine.rois"]
 
 
 def test_input_wait_and_job_close_reach_the_profiler(prob_run):
@@ -258,36 +252,6 @@ def test_input_wait_and_job_close_reach_the_profiler(prob_run):
     assert len(inner) == waits + 1 + len(prob_run["dispatched"])
     assert all(job[1] <= e[1] <= e[2] <= job[2] for e in inner)
     assert "engine.rois" not in timer.summary().split("counter")[0]
-
-
-def test_layernorm_launches_counted_once_a_dispatch(prob_run):
-    # ResNet18 on the CPU launches no LayerNorm kernel
-    timer = prob_run["timer"]
-    assert timer.totals["layernorm.launches"] == 0
-    assert timer.counts["layernorm.launches"] == len(prob_run["dispatched"])
-
-
-def test_layernorm_launches_are_each_dispatchs_own(tiny_model, monkeypatch):
-    """The counter adds the LayerNorm kernel's launches of each dispatch,
-    counted once the dispatch is made (a stand-in launches 22 a dispatch)."""
-    clf = probability.prepare_model(tiny_model, batch_size=2, device="cpu")
-    clf.timer = profiling.StageTimer(enabled=True)
-    inner = clf.dispatch_shelf
-
-    def launching(batch, meta):
-        layernorm.launches += 22
-        return inner(batch, meta)
-
-    monkeypatch.setattr(layernorm, "launches", layernorm.launches)
-    clf.dispatch_shelf = launching
-    rois = ifcb.read_sample(FIXTURE)
-    got = list(clf.classify_rois(
-        (0, int(i), rois.image(j)) for j, i in enumerate(rois.roi_ids)))
-    assert len(got) == len(rois)
-    timer = clf.timer
-    dispatches = timer.counts["layernorm.launches"]
-    assert dispatches == timer.counts["engine.rois"] >= 1
-    assert timer.totals["layernorm.launches"] == 22 * dispatches
 
 
 def test_fused_stream_counts_its_dispatches(tiny_model):

@@ -1,13 +1,12 @@
 """The port's ``watch`` daemon (``sykepic_tpu_torch/compute/watch.py``)
 through the six behaviours of ``tests/test_watch.py``, with the port's
-``Classifier`` on the CPU over the conftest's ``model_dir``: the settle
-filter, each sample processed once, a transient feature failure retried, an
-oversized ``.roi`` skipped for good, a permanent failure given up after
-``max_retries``, and a cycle in which every sample fails (systemic) burning
-no retries. Then the CLI: one classifier on ``--device`` without a mesh,
-and ``cuda`` without a card raises. The classifier packs slots
-(``SYKEPIC_PACKING=slots``): at batch 4 a CPU dispatch is 4 slots where a
-shelf dispatch is 64, and the daemon's behaviours do not depend on it.
+``Classifier`` on the CPU over a 64x64 ResNet18 model directory
+(``tests/torch_model_dirs.py``, so that a 64-slot shelf dispatch stays
+cheap): the settle filter, each sample processed once, a transient feature
+failure retried, an oversized ``.roi`` skipped for good, a permanent
+failure given up after ``max_retries``, and a cycle in which every sample
+fails (systemic) burning no retries. Then the CLI: one classifier on
+``--device`` without a mesh, and ``cuda`` without a card raises.
 """
 
 import os
@@ -17,6 +16,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_model_dirs import family_model_dir
 
 from sykepic_tpu_torch.__main__ import main
 from sykepic_tpu_torch.compute import pipeline, probability, watch
@@ -31,11 +31,10 @@ def _one_thread():
 
 
 @pytest.fixture(scope="module")
-def clf(model_dir):
-    with pytest.MonkeyPatch.context() as m:
-        m.setenv("SYKEPIC_PACKING", "slots")
-        return probability.prepare_model(model_dir, batch_size=4,
-                                         device="cpu")
+def clf(tmp_path_factory):
+    d = family_model_dir(tmp_path_factory.mktemp("model"), "resnet18",
+                         size=64, head=(32, 16))
+    return probability.prepare_model(d, batch_size=4, device="cpu")
 
 
 def copy_sample(raw_dir, old=True):
