@@ -49,6 +49,20 @@ Phases, one JSON object per line on stdout:
    only). Then ConvNeXt-T's eval forward of one 2,048-slot dispatch with
    the kernel and with ATen's LayerNorm: device ms of each, 22 launches a
    forward, probabilities within 1e-5.
+2c. ``kernel_depthwise``: the eval depthwise convolution kernel
+   (``csrc/depthwise.cu``) at ConvNeXt-T's four shapes (7x7 at 45x45 x 96,
+   22x22 x 192, 11x11 x 384, 5x5 x 768) and EfficientNet-B0's twelve (3x3
+   and 5x5 at stride 1 and 2, 90x90 x 32 to 6x6 x 1152) of a 2,048-slot
+   dispatch of 180x180 ROIs: against its plain version and ``F.conv2d``
+   (cuDNN, TF32 off) within 1e-5 absolute plus 1e-5 relative, one launch a
+   call; the tile its plan took, ms by events, device ms (torch.profiler),
+   loop ms, host us a call, the byte bound (each input and output value
+   once, at 3.35 TB/s) and the share of it, the FLOP bound, the plain
+   version's ms and ``F.conv2d``'s (``library_ms``, back to back, and its
+   device ms). Then ConvNeXt-T's and EfficientNet-B0's eval forwards of one
+   2,048-slot dispatch with the kernels and with ATen's path (the rule
+   patched off): device ms of each, 18 and 16 launches a forward,
+   probabilities within 1e-5.
 3. ``prob``: a full-width ResNet18 model dir (the repo's config, seeded
    random weights saved as a reference-layout ``best_state.pth``) and a
    workload of the fixture sample plus 20,000 synthetic ROIs in
@@ -144,7 +158,10 @@ Phases, one JSON object per line on stdout:
    checked and K1 launched once per dispatch; then a profiled warm stream
    (busy share, the three largest device-time kinds) and the card against
    the CPU on 66 ROIs (within 1.2e-5, the same argmax); ConvNeXt-T's cold run launches the LayerNorm kernel 22 times a
-   dispatch, the other families never. Then ``train`` for two epochs
+   dispatch, the other families never; the depthwise kernel launches 18
+   times a dispatch for ConvNeXt-T, 16 for EfficientNet-B0, 30 for
+   EfficientNet-V2-S and 15 for MobileNetV3-large, and never for the
+   others (nor for ResNet18 in ``prob``). Then ``train`` for two epochs
    (stages 0 and 1, bf16, batch 256, Adam) on the ``train`` phase's set:
    ``efficientnet_b0`` with flip, translate, zoom, rotate (``max_rotation``
    10) and brightness, so K1's eval form and the rotation warp run on the
@@ -494,8 +511,12 @@ def profiled_kernels(fn, word: str, reps: int) -> tuple[float, int]:
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    sentinel = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # torch.profiler has been seen to drop the first kernel of a
+        # profile on the card: a fill goes first, and only it may be dropped
+        sentinel.fill_(1.0)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -755,6 +776,155 @@ def phase_kernel_layernorm(smi: str) -> dict:
     return cases[0]
 
 
+# (k, stride, map side, channels) of a 180x180 ROI's depthwise convolutions:
+# ConvNeXt-T's four, then EfficientNet-B0's twelve distinct ones
+DW_SHAPES = ((7, 1, 45, 96), (7, 1, 22, 192), (7, 1, 11, 384), (7, 1, 5, 768),
+             (3, 1, 90, 32), (3, 2, 90, 96), (3, 1, 45, 144), (5, 2, 45, 144),
+             (5, 1, 23, 240), (3, 2, 23, 240), (3, 1, 12, 480),
+             (5, 1, 12, 480), (5, 1, 12, 672), (5, 2, 12, 672),
+             (5, 1, 6, 1152), (3, 1, 6, 1152))
+# float32 sums of k*k products in another order, and one rounding a tap
+# (fmaf) against two; outputs below 8
+DW_TOL = 1e-5
+DW_FORWARD_TOL = 1e-5  # probabilities, kernel path against ATen's
+# depthwise convolutions a forward of each family the kernel takes
+DW_PER_FORWARD = {"convnext_tiny": 18, "efficientnet_b0": 16,
+                  "efficientnet_v2_s": 30, "mobilenet_v3_large": 15}
+
+
+def dw_case(k: int, stride: int, side: int, c: int) -> dict:
+    """The depthwise kernel at one shape of a 2,048-slot dispatch against
+    its plain version (both on the card) and ``F.conv2d``."""
+    from torch.nn import functional as F
+
+    from sykepic_tpu_torch.ops import depthwise
+
+    g = torch.Generator(device="cuda").manual_seed(k * 1000 + side)
+    x = torch.randn(BATCH, side, side, c, device="cuda", generator=g)
+    w = torch.randn(c, 1, k, k, device="cuda", generator=g) / k
+    xn = x.permute(0, 3, 1, 2)  # the channels_last NCHW view
+
+    def call():
+        return depthwise.depthwise(x, w, stride)
+
+    def plain():
+        return depthwise.depthwise_plain(x, w, stride)
+
+    def library():
+        return F.conv2d(xn, w, stride=stride, padding=(k - 1) // 2,
+                        groups=c)
+
+    got = call()
+    want = plain()
+    err = float((got - want).abs().max())
+    ok = torch.allclose(got, want, rtol=DW_TOL, atol=DW_TOL)
+    del want
+    lib = library().permute(0, 2, 3, 1)
+    lib_err = float((got - lib).abs().max())
+    ok = ok and torch.allclose(got, lib, rtol=DW_TOL, atol=DW_TOL)
+    del lib
+    check(ok, f"depthwise {k}x{k}/{stride} {side}x{c}: max |diff| {err} "
+          f"(plain), {lib_err} (F.conv2d)")
+    n0 = depthwise.launches
+    prof_ms, recorded = profiled_kernels(call, "depthwise", TIMED_LAUNCHES)
+    launched = depthwise.launches - n0
+    check(recorded == TIMED_LAUNCHES and launched == TIMED_LAUNCHES + 1,
+          f"depthwise {k}x{k}/{stride} {side}x{c}: {recorded} kernels "
+          f"recorded, {launched} launches for {TIMED_LAUNCHES} calls and a "
+          "warm-up")
+    # cuDNN's depthwise kernels (conv2d_c1_k1_nhwc,
+    # convolve_common_engine_float_NHWC), a call
+    lib_prof_ms, _ = profiled_kernels(library, "conv", TIMED_LAUNCHES)
+    device_ms = prof_ms / recorded
+    ho = depthwise.out_size(side, stride)
+    bytes_s = 4 * (BATCH * side * side * c + BATCH * ho * ho * c
+                   + c * k * k) / MEMORY_BYTES_PER_S
+    flops_s = 2 * BATCH * ho * ho * c * k * k / F32_OPS_PER_S
+    bound_ms = 1e3 * max(bytes_s, flops_s)
+    del got
+    return {"k": k, "stride": stride, "shape": [BATCH, side, side, c],
+            "tile": list(depthwise.plan(k, stride, ho, ho)),
+            "max_abs_err": err, "max_abs_err_library": lib_err,
+            "ms": time_ms(call, TIMED_LAUNCHES), "device_ms": device_ms,
+            "loop_ms": loop_ms(call, TIMED_LAUNCHES),
+            "host_us": host_us(call), "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_s >= flops_s else "ops",
+            "flop_bound_ms": 1e3 * flops_s,
+            "share_of_bound": bound_ms / device_ms,
+            "plain_ms": time_ms(plain, TIMED_PLAIN),
+            "library_ms": loop_ms(library, TIMED_LAUNCHES),
+            "library_device_ms": lib_prof_ms / TIMED_LAUNCHES}
+
+
+def dw_forward(name: str) -> dict:
+    """``name``'s eval forward of one 2,048-slot dispatch on the card,
+    channels_last, with the kernel path and with ATen's (the rule patched
+    off): device ms of each, the depthwise kernel's launches a forward and
+    the largest gap between their probabilities."""
+    from sykepic_tpu_torch.models import convnext, layers, registry
+    from sykepic_tpu_torch.ops import depthwise
+
+    model = registry.init_weights(registry.build_model(name, 50), 0)
+    with torch.no_grad():  # block scales of 1, so the blocks count
+        for m in model.modules():
+            if isinstance(m, convnext.CNBlock):
+                m.layer_scale.fill_(1.0)
+    model = model.to("cuda", memory_format=torch.channels_last).eval()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.rand(BATCH, 180, 180, 3, device="cuda", generator=g).permute(
+        0, 3, 1, 2)
+
+    def forward():
+        with torch.inference_mode():
+            return torch.softmax(model(x) * np.log(1.3), dim=-1)
+
+    n0 = depthwise.launches
+    kernel = forward()
+    per_forward = depthwise.launches - n0
+    kernel_ms = loop_ms(forward, 3)
+    rules = (layers.eval_kernel_runs, convnext.eval_kernel_runs)
+    layers.eval_kernel_runs = convnext.eval_kernel_runs = lambda *a: False
+    try:
+        n0 = depthwise.launches
+        aten = forward()
+        check(depthwise.launches == n0, "the patched rule launched the "
+              "depthwise kernel")
+        aten_ms = loop_ms(forward, 3)
+    finally:
+        layers.eval_kernel_runs, convnext.eval_kernel_runs = rules
+    dp = float((kernel - aten).abs().max())
+    want = DW_PER_FORWARD[name]
+    check(per_forward == want and dp <= DW_FORWARD_TOL,
+          f"{name} forward: {per_forward} depthwise launches for {want}, "
+          f"max |dp| {dp}")
+    return {"network": name, "launches_per_forward": per_forward,
+            "max_abs_dp": dp, "kernel_ms": kernel_ms, "aten_ms": aten_ms}
+
+
+def phase_kernel_depthwise(smi: str) -> dict:
+    """The eval depthwise kernel at ConvNeXt-T's and EfficientNet-B0's
+    shapes, and both networks' forwards with it against ATen's; returns
+    ConvNeXt-T's stage-1 case."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = []
+    for shape in DW_SHAPES:
+        cases.append(dw_case(*shape))
+        torch.cuda.empty_cache()
+    forwards = [dw_forward(name) for name in ("convnext_tiny",
+                                              "efficientnet_b0")]
+    emit({"phase": "kernel_depthwise", "gpu": smi, "cases": cases,
+          "forwards": forwards,
+          # each shape's device ms times its convolutions a forward
+          "convnext_tiny_device_ms_per_dispatch": sum(
+              case["device_ms"] * n for case, n in zip(cases, (3, 3, 9, 3))),
+          "efficientnet_b0_device_ms_per_dispatch": sum(
+              case["device_ms"] * n for case, n in zip(
+                  cases[4:], (1, 1, 1, 1, 1, 1, 2, 1, 2, 1, 3, 1)))})
+    torch.cuda.empty_cache()
+    return cases[0]
+
+
 def check_csvs(out_dir: Path, counts: dict, classes) -> None:
     from sykepic_tpu_torch.utils import files
 
@@ -811,11 +981,13 @@ def phase_prob(model_dir: Path, raw: Path, counts: dict) -> int:
     from sykepic_tpu_torch.compute import probability
     from sykepic_tpu_torch.compute.engine import Classifier
     from sykepic_tpu_torch.models import checkpoint
+    from sykepic_tpu_torch.ops import depthwise
 
     classes = checkpoint.read_class_names(model_dir)
     n_rois = sum(counts.values())
     samples = list(counts)
     runs = {}
+    dw0 = depthwise.launches
 
     def cli(out, force):
         # python -m sykepic_tpu_torch prob, in-process, on the card
@@ -844,8 +1016,12 @@ def phase_prob(model_dir: Path, raw: Path, counts: dict) -> int:
               f"{name}: K1 launched {launches} times for {dispatches} dispatches")
         runs[name] = {"seconds": seconds, "rois_per_s": n_rois / seconds,
                       "dispatches": dispatches, "k1_launches": launches}
+    # ResNet18 has no depthwise convolution
+    check(depthwise.launches == dw0, "ResNet18's prob launched the "
+          "depthwise kernel")
     emit({"phase": "prob", "rois": n_rois, "samples": len(samples),
-          "batch": BATCH, "runs": runs})
+          "batch": BATCH, "runs": runs,
+          "depthwise_launches": depthwise.launches - dw0})
 
     # the port on the CPU and on the card, the same ROIs
     small_raw = WORK / "raw_compare"
@@ -1897,12 +2073,12 @@ def family_prob(name: str, raw: Path, counts: dict, small: list,
                 smi: str) -> tuple[int, int]:
     """One family's model dir through ``prob`` on the card (cold, then
     warm), a profiled warm stream, and the card against
-    the CPU; returns K1's and the LayerNorm kernel's launches in the cold
-    run."""
+    the CPU; returns K1's, the LayerNorm kernel's and the depthwise
+    kernel's launches in the cold run."""
     from sykepic_tpu_torch.__main__ import main
     from sykepic_tpu_torch.compute.engine import Classifier
     from sykepic_tpu_torch.models import checkpoint
-    from sykepic_tpu_torch.ops import layernorm
+    from sykepic_tpu_torch.ops import depthwise, layernorm
 
     model_dir = build_family_dir(WORK / "families", name)
     classes = checkpoint.read_class_names(model_dir)
@@ -1914,9 +2090,10 @@ def family_prob(name: str, raw: Path, counts: dict, small: list,
         main(["prob", "-r", str(raw), "-m", str(model_dir), "-o", str(out),
               "-b", str(BATCH)] + (["-f"] if force else []))
 
-    ln0 = layernorm.launches
+    ln0, dw0 = layernorm.launches, depthwise.launches
     cold_s, launches = timed_run(lambda: cli(False), {})
     ln_launches = layernorm.launches - ln0
+    dw_launches = depthwise.launches - dw0
     dispatches = count_dispatches(samples)
     check_csvs(out, counts, classes)
     check(launches == dispatches and launches > 0,
@@ -1925,6 +2102,9 @@ def family_prob(name: str, raw: Path, counts: dict, small: list,
     ln_want = 22 * dispatches if name.startswith("convnext") else 0
     check(ln_launches == ln_want, f"{name}: the LayerNorm kernel launched "
           f"{ln_launches} times for {ln_want}")
+    dw_want = DW_PER_FORWARD.get(name, 0) * dispatches
+    check(dw_launches == dw_want, f"{name}: the depthwise kernel launched "
+          f"{dw_launches} times for {dw_want}")
     warm_s, _ = timed_run(lambda: cli(True), {})
     check_csvs(out, counts, classes)
 
@@ -1952,6 +2132,7 @@ def family_prob(name: str, raw: Path, counts: dict, small: list,
     emit({"phase": "families_prob", "network": name, "gpu": smi,
           "rois": n_rois, "dispatches": dispatches, "k1_launches": launches,
           "layernorm_launches": ln_launches,
+          "depthwise_launches": dw_launches,
           "cold_s": cold_s, "warm_s": warm_s,
           "warm_e2e_rois_per_s": n_rois / warm_s,
           "device_busy_share": profile["device_busy_share"],
@@ -1962,7 +2143,7 @@ def family_prob(name: str, raw: Path, counts: dict, small: list,
                               (pc.argmax(1) == pg.argmax(1)).mean()),
                           "ties_within_two_quanta": int((~clear).sum()),
                           "mean_top_prob": float(pc.max(1).mean())}})
-    return launches, ln_launches
+    return launches, ln_launches, dw_launches
 
 
 def family_train(name: str, augmentations: str, dataset: Path,
@@ -2063,7 +2244,7 @@ def family_train(name: str, augmentations: str, dataset: Path,
 def phase_families(run: dict, smi: str) -> dict:
     """The seven families through ``prob`` and two through ``train``;
     returns K1's launches of each family's ``prob`` run and train run, and
-    the LayerNorm kernel's of each ``prob`` run."""
+    the LayerNorm and depthwise kernels' of each ``prob`` run."""
     raw = WORK / "raw_families"
     counts = build_raw(raw, FAMILY_ROIS, seed=43, start=datetime(2020, 1, 1))
     small = list(build_raw(WORK / "raw_families_compare", FAMILY_COMPARE,
@@ -2072,8 +2253,9 @@ def phase_families(run: dict, smi: str) -> dict:
                 for name in FAMILY_NETS}
     train = {name: family_train(name, augs, run["dataset"], smi)
              for name, augs in FAMILY_TRAIN}
-    return {"prob": {name: k1 for name, (k1, _) in launched.items()},
-            "layernorm": {name: ln for name, (_, ln) in launched.items()},
+    return {"prob": {name: k1 for name, (k1, _, _) in launched.items()},
+            "layernorm": {name: ln for name, (_, ln, _) in launched.items()},
+            "depthwise": {name: dw for name, (_, _, dw) in launched.items()},
             "train": train}
 
 
@@ -2993,6 +3175,7 @@ def main() -> int:
     main_case = timed("kernel_resize_pad", phase_kernel, model_dir,
                       list(counts))
     ln = timed("kernel_layernorm", phase_kernel_layernorm, smi)
+    dw = timed("kernel_depthwise", phase_kernel_depthwise, smi)
     launches = timed("prob", phase_prob, model_dir, raw, counts)
     check(launches > 0, "the main path never launched K1")
     timed("profile", phase_profile, model_dir, list(counts))
@@ -3123,6 +3306,26 @@ def main() -> int:
         "bound_ms": ln["bound_ms"],
         "bound_by": "bytes",
         "library_ms": ln["library_ms"],
+    }, {
+        # times at ConvNeXt-T's stage 1 of a 2,048-slot dispatch (the
+        # other shapes are in kernel_depthwise); launches: ConvNeXt-T's
+        # cold prob run (18 a dispatch), each family's beside it
+        "name": "depthwise",
+        "route": "cuda",
+        "source": "sykepic_tpu_torch/csrc/depthwise.cu",
+        "replaces": None,
+        "launches": families["depthwise"]["convnext_tiny"],
+        "families_launches": families["depthwise"],
+        "max_abs_err": dw["max_abs_err"],
+        "ms": dw["ms"],
+        "device_ms": dw["device_ms"],
+        "loop_ms": dw["loop_ms"],
+        "host_us": dw["host_us"],
+        "share_of_bound": dw["share_of_bound"],
+        "plain_ms": dw["plain_ms"],
+        "bound_ms": dw["bound_ms"],
+        "bound_by": dw["bound_by"],
+        "library_ms": dw["library_ms"],
     }], "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

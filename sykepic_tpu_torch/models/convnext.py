@@ -18,13 +18,15 @@ so every LayerNorm normalises the channel axis of an NHWC view
 (:class:`LayerNorm2d`), never the last axis of the NCHW view, and each
 permute is a free view.
 
-In an eval forward on the card (:func:`eval_kernel_runs`: float32,
-channels_last, autocast off, no gradient recorded) each LayerNorm is the
-hand-written kernel of :mod:`sykepic_tpu_torch.ops.layernorm`, one launch
-a call. Where a convolution comes straight before it (the stem, and each
-block's depthwise 7x7) the convolution runs without its bias and the
-kernel adds it (``pre_bias``). Everywhere else (training, bf16, autocast,
-the CPU, a tensor-parallel block) ATen's LayerNorm runs as before. The
+In an eval forward on the card (:func:`~.layers.eval_kernel_runs`:
+float32, channels_last, autocast off, no gradient recorded) each LayerNorm
+is the hand-written kernel of :mod:`sykepic_tpu_torch.ops.layernorm`, and
+each block's depthwise 7x7 that of :mod:`sykepic_tpu_torch.ops.depthwise`,
+one launch a call each. Where a convolution comes straight before the
+LayerNorm (the stem, and each block's depthwise 7x7) the convolution runs
+without its bias and the LayerNorm kernel adds it (``pre_bias``).
+Everywhere else (training, bf16, autocast, the CPU, a tensor-parallel
+block) ATen's LayerNorm and cuDNN's convolution run as before. The
 modules, parameters and state-dict keys are the same on both paths.
 """
 
@@ -36,8 +38,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..ops import layernorm
-from .layers import check_min_input
+from ..ops import depthwise, layernorm
+from .layers import check_min_input, eval_kernel_runs
 from .resnet import Backbone, Head, StochasticDepth
 
 # name -> (dims per stage, blocks per stage, stochastic depth prob)
@@ -52,24 +54,13 @@ LN_EPS = 1e-6
 LAYER_SCALE_INIT = 1e-6
 
 
-def eval_kernel_runs(x: torch.Tensor, module: nn.Module) -> bool:
-    """Whether ``module``'s LayerNorm of ``x`` (NCHW) runs as the eval
-    kernel (:mod:`sykepic_tpu_torch.ops.layernorm`): ``x`` is a float32 CUDA
-    tensor in channels_last (so the NHWC view of a convolution's output is
-    contiguous), autocast is off, and no gradient is recorded (none is
-    enabled, or neither ``x`` nor any parameter of ``module`` requires
-    one): the kernel has no backward."""
-    return (x.is_cuda and x.dtype == torch.float32
-            and x.is_contiguous(memory_format=torch.channels_last)
-            and not torch.is_autocast_enabled(x.device.type)
-            and not (torch.is_grad_enabled() and (
-                x.requires_grad
-                or any(p.requires_grad for p in module.parameters()))))
-
-
 def _conv_no_bias(conv: nn.Conv2d, x):
-    """``conv`` of ``x`` without its bias, in NHWC (a free view of the
-    channels_last output cuDNN gives; a copy only where it gave none)."""
+    """``conv`` of ``x`` without its bias, in NHWC: the depthwise kernel
+    where it takes ``conv`` (each block's 7x7), else cuDNN's channels_last
+    output as a free view (a copy only where it gave none)."""
+    if depthwise.takes(conv):
+        return depthwise.depthwise(x.permute(0, 2, 3, 1), conv.weight,
+                                   conv.stride[0])
     return conv._conv_forward(x, conv.weight, None).permute(
         0, 2, 3, 1).contiguous()
 

@@ -28,7 +28,15 @@ the card within 1e-5 absolute (outputs below 8; float32 sums in another
 order, rsqrtf within 2 ulp), at widths that reach each of its instances and
 at ConvNeXt-T's stage-1 dispatch; one launch a call, under a name holding
 ``layernorm``; ConvNeXt-T's eval forward with the kernel against ATen's
-LayerNorm, probabilities within 1e-5.
+LayerNorm, probabilities within 1e-5. The eval depthwise convolution kernel
+(``csrc/depthwise.cu``) against its plain version and ``F.conv2d`` (cuDNN,
+TF32 off) within 1e-5 absolute plus 1e-5 relative (float32 sums of k^2
+products in another order, one rounding a tap against two; outputs below
+8), at every instance and at ConvNeXt-T's and EfficientNet-B0's shapes,
+ConvNeXt-T's stage-1 dispatch among them; one launch a call, under a name
+that holds ``depthwise`` and none of the benchmark readers' words; and
+ConvNeXt-T's and EfficientNet-B0's eval forwards with it against ATen's,
+probabilities within 1e-5.
 """
 
 import numpy as np
@@ -36,8 +44,8 @@ import pytest
 import torch
 
 from sykepic_tpu_torch.ingest import pack
-from sykepic_tpu_torch.ops import (augment, flood, layernorm, preprocess,
-                                   resize_pad)
+from sykepic_tpu_torch.ops import (augment, depthwise, flood, layernorm,
+                                   preprocess, resize_pad)
 
 @pytest.fixture
 def cuda():
@@ -760,4 +768,159 @@ def test_convnext_eval_forward_kernel_against_aten(cuda, monkeypatch):
     monkeypatch.setattr(convnext, "eval_kernel_runs", lambda *a: False)
     want = probs()
     assert layernorm.launches - n0 == 22
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+# (k, stride, height, width, channels): ConvNeXt-T's four shapes and
+# EfficientNet-B0's twelve of a 180x180 input, then odd and ragged ones
+# (maps smaller than the filter, part slices of channels); between them
+# they reach every instance of the kernel
+DW_CASES = (
+    (7, 1, 45, 45, 96), (7, 1, 22, 22, 192), (7, 1, 11, 11, 384),
+    (7, 1, 5, 5, 768), (3, 1, 90, 90, 32), (3, 2, 90, 90, 96),
+    (3, 1, 45, 45, 144), (5, 2, 45, 45, 144), (5, 1, 23, 23, 240),
+    (3, 2, 23, 23, 240), (3, 1, 12, 12, 480), (5, 1, 12, 12, 480),
+    (5, 1, 12, 12, 672), (5, 2, 12, 12, 672), (5, 1, 6, 6, 1152),
+    (3, 1, 6, 6, 1152), (3, 1, 1, 1, 4), (3, 2, 1, 2, 8), (5, 2, 2, 3, 4),
+    (7, 1, 3, 1, 12), (5, 1, 7, 4, 20), (3, 2, 9, 13, 36), (7, 1, 13, 6, 44),
+    (5, 2, 17, 10, 100), (3, 1, 5, 31, 68), (7, 1, 30, 17, 52))
+DW_TOL = 1e-5
+# substrings the benchmark's readers match in kernel names
+READER_WORDS = ("layer_norm", "layernorm", "RowwiseMoments", "gelu",
+                "resize_pad")
+
+
+def _dw_inputs(n, h, w, c, k, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n, h, w, c, generator=g, device=device)
+    weight = torch.randn(c, 1, k, k, generator=g, device=device) / k
+    return x, weight
+
+
+def _dw_check(x, weight, stride):
+    from torch.nn import functional as F
+
+    k = weight.shape[-1]
+    got = depthwise.depthwise(x, weight, stride)
+    plain = depthwise.depthwise_plain(x, weight, stride)
+    torch.testing.assert_close(got, plain, rtol=DW_TOL, atol=DW_TOL)
+    del plain
+    library = F.conv2d(x.permute(0, 3, 1, 2), weight, stride=stride,
+                       padding=(k - 1) // 2, groups=x.shape[-1])
+    assert got.is_contiguous()
+    torch.testing.assert_close(got, library.permute(0, 2, 3, 1),
+                               rtol=DW_TOL, atol=DW_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,stride,h,w,c", DW_CASES)
+def test_depthwise_kernel_matches_plain_version_and_conv2d(
+        cuda, monkeypatch, k, stride, h, w, c):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    x, weight = _dw_inputs(8, h, w, c, k, k * 1000 + h + c, cuda)
+    _dw_check(x, weight, stride)
+
+
+@pytest.mark.gpu
+def test_depthwise_kernel_at_the_stage_1_dispatch(cuda, monkeypatch):
+    """ConvNeXt-T's stage 1 at a 2,048-slot dispatch: 2048 x 45x45 x 96."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    x, weight = _dw_inputs(2048, 45, 45, 96, 7, 1, cuda)
+    _dw_check(x, weight, 1)
+
+
+@pytest.mark.gpu
+def test_depthwise_one_launch_per_call_named_depthwise(cuda):
+    x, weight = _dw_inputs(64, 11, 11, 384, 7, 2, cuda)
+    x2, weight2 = _dw_inputs(64, 23, 23, 240, 5, 3, cuda)
+    sentinel = torch.zeros(1, device=cuda)
+
+    def calls():
+        # torch.profiler has been seen to drop the first kernel of a
+        # profile on the card: a fill goes first, and only it may be dropped
+        sentinel.fill_(1.0)
+        return [depthwise.depthwise(x, weight, 1),
+                depthwise.depthwise(x2, weight2, 2),
+                depthwise.depthwise(x, weight, 1)]
+
+    n0 = depthwise.launches
+    calls()
+    torch.cuda.synchronize()
+    assert depthwise.launches - n0 == 3
+    # in a run of the whole file on the card, torch.profiler has been seen
+    # to record no event at all, the sentinel's fill included: profile again
+    for _ in range(3):
+        names = _kernel_names(calls)
+        if names:
+            break
+    ours = [n for n in names if "depthwise" in n]
+    assert len(ours) == 3 and len(names) - len(ours) <= 1, names
+    assert not any(word in n for n in ours for word in READER_WORDS)
+    n0 = depthwise.launches
+    empty = depthwise.depthwise(x[:0], weight, 1)
+    assert empty.shape == (0, 11, 11, 384)
+    assert depthwise.launches == n0
+
+
+@pytest.mark.gpu
+def test_depthwise_rejects_what_it_does_not_take(cuda):
+    x, weight = _dw_inputs(2, 9, 9, 96, 3, 4, cuda)
+    bad = [
+        (x.transpose(1, 2), weight, 1),  # not contiguous
+        (x.double(), weight.double(), 1),  # float64
+        (x[..., :94].contiguous(), weight[:94], 1),  # C % 4 != 0
+        (x, torch.zeros(96, 1, 4, 4, device=cuda), 1),  # k even
+        (x, torch.zeros(96, 1, 9, 9, device=cuda), 1),  # k past 7
+        (x, torch.zeros(96, 1, 7, 7, device=cuda), 2),  # 7x7 at stride 2
+        (x, weight, 3),  # stride 3
+        (x, weight[:48], 1),  # weight of another width
+        (x, torch.zeros(96, 2, 3, 3, device=cuda), 1),  # not depthwise
+        (x, weight.cpu(), 1),  # weight on another device
+        (x[0], weight, 1),  # not 4-D
+        (x[:, :0], weight, 1),  # an empty map
+        # contiguous, but one float past 16-byte alignment
+        (torch.zeros(2 * 9 * 9 * 96 + 1, device=cuda)[1:].view(2, 9, 9, 96),
+         weight, 1),
+    ]
+    n0 = depthwise.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            depthwise.depthwise(*args)
+    assert depthwise.launches == n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,per_forward", [("convnext_tiny", 18),
+                                              ("efficientnet_b0", 16)])
+def test_eval_forward_depthwise_kernel_against_aten(cuda, monkeypatch, name,
+                                                    per_forward):
+    """An eval forward on the card, channels_last: the depthwise kernel
+    launched once a depthwise convolution, and the probabilities within
+    1e-5 of the same forward on ATen's path (the rule patched off)."""
+    import math
+
+    from sykepic_tpu_torch.models import convnext, layers, registry
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    model = registry.init_weights(registry.build_model(name, 50), 0)
+    with torch.no_grad():  # block scales of 1, so the blocks count
+        for m in model.modules():
+            if isinstance(m, convnext.CNBlock):
+                m.layer_scale.fill_(1.0)
+    model = model.to(cuda, memory_format=torch.channels_last).eval()
+    x = torch.rand(16, 3, 180, 180, generator=torch.Generator().manual_seed(2))
+    x = x.to(cuda).contiguous(memory_format=torch.channels_last)
+
+    def probs():
+        with torch.inference_mode():
+            return torch.softmax(model(x) * math.log(1.3), dim=-1).cpu()
+
+    n0 = depthwise.launches
+    got = probs()
+    assert depthwise.launches - n0 == per_forward
+    monkeypatch.setattr(layers, "eval_kernel_runs", lambda *a: False)
+    monkeypatch.setattr(convnext, "eval_kernel_runs", lambda *a: False)
+    want = probs()
+    assert depthwise.launches - n0 == per_forward
     assert float((got - want).abs().max()) <= 1e-5
