@@ -196,6 +196,10 @@ class Classifier:
                  f"{str(self.memory_format).removeprefix('torch.')}")
         self.model = model.to(self.device,
                               memory_format=self.memory_format).eval()
+        # counters each slot of a dispatch adds, from the network's own
+        # account of its work at the input size (Swin's windows)
+        self._slot_counts = model.dispatch_counts(self.spec.target_h,
+                                                  self.spec.target_w)
         self._batch_multiple = parallel.data_axis_size(mesh)
         if parallel.has_model_axis(mesh):
             # tensor parallel: wide late-stage kernels shard over the model
@@ -579,10 +583,16 @@ class Classifier:
                          else "engine.wire_raw")
 
     def _count_dispatch(self, batch, meta) -> None:
-        """Count one dispatch, once it is made: its ROIs and its slots
-        (padding included)."""
+        """Count one dispatch, once it is made: its ROIs, its slots
+        (padding included), and what the network's forward does for those
+        slots (:meth:`~sykepic_tpu_torch.models.resnet.Backbone.
+        dispatch_counts`: Swin's ``swin.windows``, ``swin.tokens`` and
+        ``swin.pad_tokens``)."""
+        slots = meta.shape[1]
         self.timer.count("engine.rois", batch.n_valid)
-        self.timer.count("engine.slots", meta.shape[1])
+        self.timer.count("engine.slots", slots)
+        for name, n in self._slot_counts.items():
+            self.timer.count(name, n * slots)
 
     def _drain_block(self, batch, host_rows, event):
         """Drain-thread half of a dispatch: wait for its rows, unpack the

@@ -17,6 +17,10 @@ Both formats load into one torch ``state_dict`` in torchvision naming
 - ``best_state.pth`` in the reference ``base.N.*`` / ``head.K.*`` layout is
   renamed by :func:`normalize_state_dict`.
 
+Swin (``swin_*``) has no Flax form: its checkpoint is the ``.pth`` alone,
+and the Flax paths (:func:`flax_paths` and what reads it,
+:func:`sniff_network`) refuse it.
+
 Training writes ``best_state.msgpack`` back in the JAX package's layout:
 :func:`to_flax_variables` (the inverse of :func:`from_flax_variables`) and
 :func:`msgpack_serialize`, a writer of flax's format (ndarray ext code 1,
@@ -323,6 +327,7 @@ FAMILIES = {
     "features": ("vgg", "alexnet"),
     "convnext": ("convnext",),
     "regnet": ("regnet",),
+    "swin": ("swin",),
 }
 
 # reference TorchVisionNet ``base.N`` -> torchvision child, per family
@@ -331,8 +336,11 @@ _BASE_CHILDREN = {
     "resnet": {"0": "conv1", "1": "bn1", "4": "layer1", "5": "layer2",
                "6": "layer3", "7": "layer4"},
     "regnet": {"0": "stem", "1": "trunk_output"},
-    "features": {"0": "features"},  # and every family but those two
+    "swin": {"0": "features", "1": "norm"},
+    "features": {"0": "features"},  # and every family but those three
 }
+NO_FLAX = ("Swin has no Flax form (the JAX package has no Swin): its "
+           "checkpoint is a best_state.pth in the reference's layout")
 
 # a Flax module that normalises: its "weight" is a "scale"
 _NORM = re.compile(r"(^|_)(bn\d*|ln|norm)$")
@@ -351,7 +359,8 @@ def _torch_family(keys) -> str:
     keys = list(keys)
     if "conv1.weight" in keys:
         return "resnet"
-    for fam, pattern in (("regnet", r"trunk_output\."),
+    for fam, pattern in (("swin", r".*relative_position_bias_table$"),
+                         ("regnet", r"trunk_output\."),
                          ("convnext", r".*layer_scale$"),
                          ("efficientnet", r"features\.\d+\.\d+\.block\."),
                          ("mobilenet", r"features\.\d+\.block\."),
@@ -539,6 +548,8 @@ def flax_paths(keys, network: str | None = None) -> dict:
     the family's layout."""
     keys = [k for k in keys if not k.endswith("num_batches_tracked")]
     fam = family(network) if network else _torch_family(keys)
+    if fam == "swin":
+        raise ValueError(NO_FLAX)
     split = {k: k.rsplit(".", 1) for k in keys}
     body = sorted({p for p, _ in split.values() if not p.startswith("head.")})
     modules = _MODULES[fam](body)
@@ -570,6 +581,8 @@ def normalize_state_dict(state_dict: dict, network: str | None = None) -> dict:
         fam = "resnet"
     elif any(re.match(r"base\.1\.block\d+\.", k) for k in state_dict):
         fam = "regnet"
+    elif any(k.endswith("relative_position_bias_table") for k in state_dict):
+        fam = "swin"
     else:
         fam = "features"
     children = _BASE_CHILDREN.get(fam, _BASE_CHILDREN["features"])
@@ -582,6 +595,29 @@ def normalize_state_dict(state_dict: dict, network: str | None = None) -> dict:
                 continue
             key = f"{child}.{m.group(2)}"
         out[key] = value
+    return _with_swin_index(out) if fam == "swin" else out
+
+
+def _with_swin_index(state_dict: dict) -> dict:
+    """Each Swin attention's ``relative_position_index`` buffer, computed
+    from the window its bias table implies: added where the checkpoint
+    lacks it (a reference net's parameters alone), held against it where
+    the checkpoint has it (torchvision's ``state_dict``); a buffer that
+    differs raises ``ValueError``."""
+    from .swin import relative_position_index
+
+    out = dict(state_dict)
+    for key, table in state_dict.items():
+        if not key.endswith(".relative_position_bias_table"):
+            continue
+        window = (round(table.shape[0] ** 0.5) + 1) // 2
+        want = relative_position_index(window)
+        name = key.removesuffix("bias_table") + "index"
+        have = out.setdefault(name, want)
+        if tuple(have.shape) != tuple(want.shape) or not torch.equal(
+                have.to("cpu", torch.long), want):
+            raise ValueError(f"{name} is not the relative position index "
+                             f"of a {window}x{window} window")
     return out
 
 
@@ -620,6 +656,9 @@ def _backbone_shapes(network: str) -> dict:
 def _flax_family(params: dict) -> str:
     """The family of a Flax variable tree (the sniffers of
     ``convert_torch.flax_to_torch``, ``:1157-1174``)."""
+    if any("relative_position_bias_table" in name
+           for path in _flatten(params) for name in path):
+        raise ValueError(NO_FLAX)
     layers = [m for m in params if re.fullmatch(r"layer\d+_\d+", m)]
     if "stem_ln" in params:
         return "convnext"

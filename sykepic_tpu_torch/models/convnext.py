@@ -38,8 +38,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..ops import depthwise, layernorm
-from .layers import check_min_input, eval_kernel_runs
+from ..ops import layernorm
+from .layers import check_min_input, conv_no_bias, eval_kernel_runs
 from .resnet import Backbone, Head, StochasticDepth
 
 # name -> (dims per stage, blocks per stage, stochastic depth prob)
@@ -52,17 +52,6 @@ CONVNEXT_CFGS: dict[str, tuple] = {
 
 LN_EPS = 1e-6
 LAYER_SCALE_INIT = 1e-6
-
-
-def _conv_no_bias(conv: nn.Conv2d, x):
-    """``conv`` of ``x`` without its bias, in NHWC: the depthwise kernel
-    where it takes ``conv`` (each block's 7x7), else cuDNN's channels_last
-    output as a free view (a copy only where it gave none)."""
-    if depthwise.takes(conv):
-        return depthwise.depthwise(x.permute(0, 2, 3, 1), conv.weight,
-                                   conv.stride[0])
-    return conv._conv_forward(x, conv.weight, None).permute(
-        0, 2, 3, 1).contiguous()
 
 
 class LayerNorm2d(nn.LayerNorm):
@@ -87,7 +76,7 @@ class Stem(nn.Sequential):
         conv, norm = self
         if type(conv) is not nn.Conv2d or not eval_kernel_runs(x, self):
             return super().forward(x)
-        return layernorm.layernorm(_conv_no_bias(conv, x), norm.weight,
+        return layernorm.layernorm(conv_no_bias(conv, x), norm.weight,
                                    norm.bias, norm.eps,
                                    pre_bias=conv.bias).permute(0, 3, 1, 2)
 
@@ -122,7 +111,7 @@ class CNBlock(nn.Module):
         # a tensor-parallel depthwise convolution gathers its channels
         # itself: it keeps ATen's path
         if type(conv) is nn.Conv2d and eval_kernel_runs(x, self):
-            h = layernorm.layernorm(_conv_no_bias(conv, x), norm.weight,
+            h = layernorm.layernorm(conv_no_bias(conv, x), norm.weight,
                                     norm.bias, norm.eps, pre_bias=conv.bias)
             # one statement a layer, as nn.Sequential runs them: each
             # input is freed as soon as its layer has run

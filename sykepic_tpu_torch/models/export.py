@@ -30,6 +30,11 @@ def export(model_dir, out=None) -> Path:
     config = train_config.read_config(model_dir / "config.ini")
     _, dropout = train_config.get_head_spec(config)
     network = config.get("model", "network", fallback=None)
+    if network and checkpoint.family(network) == "swin":
+        # the JAX exporter has no Swin, and its best_state.pth is already
+        # the reference's layout
+        raise ValueError(f"export writes what the JAX exporter writes; "
+                         f"{checkpoint.NO_FLAX}")
     state = checkpoint.load_model_state(model_dir, dropout, network=network)
     out = Path(out) if out else model_dir / checkpoint.TORCH_STATE
     torch.save(checkpoint.reference_state_dict(state, network), str(out))

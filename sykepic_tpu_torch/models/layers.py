@@ -11,8 +11,10 @@ torchvision's key layout (``features.3.1.block.0.1.running_var``,
   kernel, one launch a call, and its NHWC output goes on to the norm as the
   channels_last NCHW view; everywhere else cuDNN runs it as before.
 - :func:`eval_kernel_runs` is the one rule that sends an eval forward to
-  the port's hand-written kernels (this depthwise convolution, and
-  ConvNeXt's LayerNorm in ``models/convnext.py``).
+  the port's hand-written kernels (this depthwise convolution, and the
+  LayerNorm of ConvNeXt and Swin in ``models/convnext.py`` and
+  ``models/swin.py``); :func:`conv_no_bias` runs the convolution before
+  such a LayerNorm, which adds its bias.
 - :class:`SqueezeExcitation` is ``ops.SqueezeExcitation``: global mean ->
   ``fc1`` 1x1 (bias) -> ``act`` -> ``fc2`` 1x1 (bias) -> ``gate`` -> scale.
 - :func:`check_min_input` is the JAX package's small-input ``ValueError``
@@ -42,6 +44,18 @@ def eval_kernel_runs(x: torch.Tensor, module: nn.Module) -> bool:
             and not (torch.is_grad_enabled() and (
                 x.requires_grad
                 or any(p.requires_grad for p in module.parameters()))))
+
+
+def conv_no_bias(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` of ``x`` (NCHW) without its bias, in NHWC: the depthwise
+    kernel where it takes ``conv`` (ConvNeXt's 7x7), else cuDNN's
+    channels_last output as a free view (a copy only where it gave none).
+    The LayerNorm kernel that follows adds the bias (``pre_bias``)."""
+    if depthwise.takes(conv):
+        return depthwise.depthwise(x.permute(0, 2, 3, 1), conv.weight,
+                                   conv.stride[0])
+    return conv._conv_forward(x, conv.weight, None).permute(
+        0, 2, 3, 1).contiguous()
 
 
 class ConvNormAct(nn.Sequential):

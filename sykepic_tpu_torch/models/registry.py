@@ -1,6 +1,8 @@
 """Model registry: name -> constructor (the reference used ``getattr(torchvision
 .models, name)``, ``sykepic/train/network.py:48``): the JAX package's 50
-names, ``sykepic_tpu/models/registry.py:13-64``.
+names, ``sykepic_tpu/models/registry.py:13-64``, then the port's own Swin
+Transformers (``swin_t``, ``swin_s``, ``swin_b``), which the JAX package
+lacks.
 """
 
 from __future__ import annotations
@@ -8,7 +10,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from . import alexnet, convnext, efficientnet, mobilenet, regnet, resnet, vgg
+from . import (alexnet, convnext, efficientnet, mobilenet, regnet, resnet,
+               swin, vgg)
 
 MODEL_REGISTRY = {
     "resnet18": resnet.resnet18,
@@ -61,6 +64,9 @@ MODEL_REGISTRY = {
     "regnet_y_8gf": regnet.regnet_y_8gf,
     "regnet_y_16gf": regnet.regnet_y_16gf,
     "regnet_y_32gf": regnet.regnet_y_32gf,
+    "swin_t": swin.swin_t,
+    "swin_s": swin.swin_s,
+    "swin_b": swin.swin_b,
 }
 
 
@@ -92,8 +98,10 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     init_variables``): convolution and linear weights lecun-normal
     (truncated normal, variance ``1 / fan_in``), biases zero, BatchNorm
     and LayerNorm scale 1 and shift 0, running mean 0 and variance 1,
-    ConvNeXt's ``layer_scale`` 1e-6. The numbers come from a
-    ``torch.Generator`` seeded with ``seed``, so they are not JAX's."""
+    ConvNeXt's ``layer_scale`` 1e-6; Swin's relative-position bias tables,
+    which the JAX package lacks, truncated normal of std 0.02 as
+    torchvision draws them. The numbers come from a ``torch.Generator``
+    seeded with ``seed``, so they are not JAX's."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
@@ -110,4 +118,9 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
                 m.reset_parameters()
             elif isinstance(m, convnext.CNBlock):
                 m.layer_scale.fill_(convnext.LAYER_SCALE_INIT)
+            elif isinstance(m, swin.ShiftedWindowAttention):
+                t = m.relative_position_bias_table
+                w = torch.empty(t.shape)
+                nn.init.trunc_normal_(w, std=0.02, generator=g)
+                t.copy_(w)
     return model

@@ -282,6 +282,12 @@ class Backbone(nn.Module):
             return torch.channels_last
         return torch.contiguous_format
 
+    def dispatch_counts(self, height: int, width: int) -> dict[str, int]:
+        """The ``StageTimer`` counters one ``height x width`` image adds to
+        a dispatch, from the network's own account of its work (none here;
+        Swin counts its attention windows)."""
+        return {}
+
 
 class ResNet(Backbone):
     """ResNet backbone + MLP head: conv7x7/2 -> bn -> relu -> maxpool3x3/2

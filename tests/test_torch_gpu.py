@@ -36,7 +36,10 @@ products in another order, one rounding a tap against two; outputs below
 ConvNeXt-T's stage-1 dispatch among them; one launch a call, under a name
 that holds ``depthwise`` and none of the benchmark readers' words; and
 ConvNeXt-T's and EfficientNet-B0's eval forwards with it against ATen's,
-probabilities within 1e-5.
+probabilities within 1e-5. Swin-T's eval forward at 180 px against the
+benchmark's plain reference (``bench_port/reference/nets/swin_t.py``, TF32
+off) within 1e-5 of the logits' spread, with 29 LayerNorm kernel launches
+and one SDPA kernel a block (12) a forward.
 """
 
 import numpy as np
@@ -924,3 +927,50 @@ def test_eval_forward_depthwise_kernel_against_aten(cuda, monkeypatch, name,
     want = probs()
     assert depthwise.launches - n0 == per_forward
     assert float((got - want).abs().max()) <= 1e-5
+
+
+# Swin-T's logits on the card against the plain reference's, as a share of
+# their spread: float32 throughout, sums in another order (the attention in
+# SDPA's memory-efficient kernel, LayerNorm in the port's kernel); an H100
+# gave 3.0e-6 of the spread, the CPU 1.3e-6 to 4.6e-6 on a small Swin
+# (tests/test_torch_swin.py)
+SWIN_LOGIT_TOL = 1e-5
+SWIN_ATTENTION_WORDS = ("fmha", "attention", "flash")
+
+
+@pytest.mark.gpu
+def test_swin_t_eval_forward_against_the_plain_reference(cuda):
+    """Swin-T at its published widths on the card, 64 images at 180 px in
+    channels_last, weights of the benchmark's seeded rule: the logits
+    within ``SWIN_LOGIT_TOL`` of their spread of the plain reference's (TF32
+    off); the LayerNorm kernel launched 29 times a forward; and one SDPA
+    kernel a block (12) in a ``torch.profiler`` trace of the forward."""
+    from bench_port import gen, tracing
+    from bench_port.reference.layers import tf32
+    from bench_port.reference.nets import swin_t as ref_net
+    from sykepic_tpu_torch.models import checkpoint, registry
+
+    cfg = {"image_shape": [3, 180, 180], "head": [256, 128],
+           "num_classes": 50, "logit_std": 8.0, "calibration_rois": 64}
+    params = gen.make_weights(ref_net, cfg, 2**31 + 23, cuda,
+                              gen.fixture_images())
+    model = registry.build_model("swin_t", 50)
+    model.load_state_dict(checkpoint.normalize_state_dict(
+        {k: v.cpu() for k, v in params.items()}, "swin_t"), strict=True)
+    model = model.to(cuda, memory_format=torch.channels_last).eval()
+    x = torch.rand(64, 3, 180, 180, generator=torch.Generator().manual_seed(3))
+    x = x.to(cuda).contiguous(memory_format=torch.channels_last)
+    with tf32(False), torch.inference_mode():
+        want = ref_net.forward(params, x, cfg)
+        n0 = layernorm.launches
+        got = model(x)
+        assert layernorm.launches - n0 == 29
+        with tracing.DeviceTrace() as tr:
+            model(x[:8])
+    gap = float((got - want).abs().max()) / float(want.std())
+    print(f"swin_t logits: max gap {gap:.3g} of the spread")
+    assert gap <= SWIN_LOGIT_TOL
+    attention = {name: n for name, (_, n) in tr.summary["kernels"].items()
+                 if any(w in name.lower() for w in SWIN_ATTENTION_WORDS)}
+    print(f"swin_t attention kernels: {attention}")
+    assert sum(attention.values()) == 12

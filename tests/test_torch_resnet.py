@@ -146,10 +146,14 @@ def test_load_model_state_from_either_format(flax_model, tmp_path):
 
 
 def test_registry_names_equal_jax():
+    """The JAX registry's 50 names first, in its order, then the port's own
+    Swin Transformers, which the JAX package lacks."""
     from sykepic_tpu_torch.models import MODEL_REGISTRY
 
-    assert list(MODEL_REGISTRY) == list(jregistry.MODEL_REGISTRY)
-    assert len(MODEL_REGISTRY) == 50
+    names = list(MODEL_REGISTRY)
+    assert names[:50] == list(jregistry.MODEL_REGISTRY)
+    assert len(jregistry.MODEL_REGISTRY) == 50
+    assert names[50:] == ["swin_t", "swin_s", "swin_b"]
 
 
 def test_other_families_build_and_unknown_names_raise():
