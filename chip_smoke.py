@@ -63,6 +63,20 @@ Phases, one JSON object per line on stdout:
    2,048-slot dispatch with the kernels and with ATen's path (the rule
    patched off): device ms of each, 18 and 16 launches a forward,
    probabilities within 1e-5.
+2d. ``kernel_window_attention``: Swin's window-attention kernel
+   (``csrc/window_attention.cu``) at Swin-T's eight block shapes of a
+   2,048-slot dispatch of 180x180 ROIs (45x45 x 96 with 3 heads to 6x6 x
+   768 with 24, each with and without the shift) on ``qkv`` of the
+   unpadded map: against its plain version (max |diff| <= 1e-5), one launch
+   a call; the heads a block its plan took, ms by events, device ms
+   (torch.profiler), loop ms, host us a call, the bound (the real tokens'
+   q, k, v and output at 3.35 TB/s, or the two products' FLOPs at 67
+   TFLOP/s) and the share of it, the benchmark reader's padded-window
+   bytes beside it, the plain version's ms and SDPA's memory-efficient
+   kernel on the same block's padded windows (``library_ms``, timed only).
+   Then Swin-T's eval forward of one 2,048-slot dispatch with the kernel
+   and with SDPA's path (the rule patched off): device ms of each, 12
+   launches a forward, probabilities within 1e-5.
 3. ``prob``: a full-width ResNet18 model dir (the repo's config, seeded
    random weights saved as a reference-layout ``best_state.pth``) and a
    workload of the fixture sample plus 20,000 synthetic ROIs in
@@ -152,13 +166,17 @@ Phases, one JSON object per line on stdout:
    config (3x180x180, head 256,128, 50 classes; seeded random weights and
    BatchNorm running statistics, ``best_state.msgpack`` written by the
    port): ``efficientnet_b0``, ``efficientnet_v2_s``, ``mobilenet_v3_large``,
-   ``vgg16_bn``, ``alexnet``, ``convnext_tiny``, ``regnet_y_400mf``. Each goes
+   ``vgg16_bn``, ``alexnet``, ``convnext_tiny``, ``regnet_y_400mf``,
+   ``swin_t``. Each goes
    through ``prob`` on the card (float32, ``-b 2048``) on the fixture sample
    plus 4,000 synthetic ROIs in the same size mix, cold and warm, every CSV
    checked and K1 launched once per dispatch; then a profiled warm stream
    (busy share, the three largest device-time kinds) and the card against
-   the CPU on 66 ROIs (within 1.2e-5, the same argmax); ConvNeXt-T's cold run launches the LayerNorm kernel 22 times a
-   dispatch, the other families never; the depthwise kernel launches 18
+   the CPU on 66 ROIs (within 1.2e-5, the same argmax); the cold run
+   launches the LayerNorm kernel 22 times a dispatch for ConvNeXt-T and 29
+   for Swin-T, the other families never; Swin-T's launches the
+   window-attention kernel 12 times a dispatch (its counter set to 0 just
+   before), the other families never; the depthwise kernel launches 18
    times a dispatch for ConvNeXt-T, 16 for EfficientNet-B0, 30 for
    EfficientNet-V2-S and 15 for MobileNetV3-large, and never for the
    others (nor for ResNet18 in ``prob``). Then ``train`` for two epochs
@@ -229,7 +247,9 @@ Phases, one JSON object per line on stdout:
 
 Then the ``kernels`` line (K1's eval form, with its launches on every
 path, the collage's among them, and its bfloat16 case, K1's train form,
-with its bfloat16 case, and K2; the zero-ROI runs' launches among them), the
+with its bfloat16 case, K2, the zero-ROI runs' launches among them, and
+the LayerNorm, depthwise and window-attention kernels, their launches those
+of the ``families`` phase's cold ``prob`` runs), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a card, or outside a checkout, the script exits non-zero at once.
@@ -527,6 +547,28 @@ def profiled_kernels(fn, word: str, reps: int) -> tuple[float, int]:
                 else e.duration_us() / 1e3 for e in hits), len(hits))
 
 
+PROFILE_TRIES = 3
+
+
+def profiled_launches(fn, word: str, reps: int, counter, what: str) -> float:
+    """Device ms of the kernels whose name holds ``word`` over ``reps``
+    calls of ``fn`` (:func:`profiled_kernels`), checked to be one kernel
+    launched (``counter()``, the module's launch count) and recorded a
+    call. torch.profiler has been seen to lose a few of a profile's kernels
+    on the card (18 of 20), so a profile that records fewer than ``reps``
+    is taken again, up to :data:`PROFILE_TRIES` times."""
+    for _ in range(PROFILE_TRIES):
+        n0 = counter()
+        prof_ms, recorded = profiled_kernels(fn, word, reps)
+        launched = counter() - n0
+        check(launched == reps + 1, f"{what}: {launched} launches for "
+              f"{reps} calls and a warm-up")
+        if recorded == reps:
+            return prof_ms
+    raise AssertionError(f"{what}: {recorded} kernels recorded for {reps} "
+                         f"calls, {PROFILE_TRIES} profiles in a row")
+
+
 def copy_floor_ms(out: torch.Tensor) -> float:
     """The card's practical write rate for ``out``'s bytes: back-to-back
     ``out.copy_(other)`` from an equal tensor (reads and writes as many
@@ -691,15 +733,12 @@ def ln_case(c: int, side: int, pre: bool) -> dict:
     check(err <= LN_TOL and lib_err <= LN_TOL,
           f"layernorm {c}x{side}: max |diff| {err} (plain), {lib_err} "
           "(F.layer_norm)")
-    n0 = layernorm.launches
-    prof_ms, recorded = profiled_kernels(call, "layernorm", TIMED_LAUNCHES)
-    launched = layernorm.launches - n0
-    check(recorded == TIMED_LAUNCHES and launched == TIMED_LAUNCHES + 1,
-          f"layernorm {c}x{side}: {recorded} kernels recorded, {launched} "
-          f"launches for {TIMED_LAUNCHES} calls and a warm-up")
+    prof_ms = profiled_launches(call, "layernorm", TIMED_LAUNCHES,
+                                lambda: layernorm.launches,
+                                f"layernorm {c}x{side}")
     lib_prof_ms, lib_recorded = profiled_kernels(library, "layer_norm",
                                                  TIMED_LAUNCHES)
-    device_ms = prof_ms / recorded
+    device_ms = prof_ms / TIMED_LAUNCHES
     rows = BATCH * side * side
     bound_ms = 1e3 * (8 * rows * c + (4 * c if pre else 0)) \
         / MEMORY_BYTES_PER_S
@@ -825,17 +864,13 @@ def dw_case(k: int, stride: int, side: int, c: int) -> dict:
     del lib
     check(ok, f"depthwise {k}x{k}/{stride} {side}x{c}: max |diff| {err} "
           f"(plain), {lib_err} (F.conv2d)")
-    n0 = depthwise.launches
-    prof_ms, recorded = profiled_kernels(call, "depthwise", TIMED_LAUNCHES)
-    launched = depthwise.launches - n0
-    check(recorded == TIMED_LAUNCHES and launched == TIMED_LAUNCHES + 1,
-          f"depthwise {k}x{k}/{stride} {side}x{c}: {recorded} kernels "
-          f"recorded, {launched} launches for {TIMED_LAUNCHES} calls and a "
-          "warm-up")
+    prof_ms = profiled_launches(call, "depthwise", TIMED_LAUNCHES,
+                                lambda: depthwise.launches,
+                                f"depthwise {k}x{k}/{stride} {side}x{c}")
     # cuDNN's depthwise kernels (conv2d_c1_k1_nhwc,
     # convolve_common_engine_float_NHWC), a call
     lib_prof_ms, _ = profiled_kernels(library, "conv", TIMED_LAUNCHES)
-    device_ms = prof_ms / recorded
+    device_ms = prof_ms / TIMED_LAUNCHES
     ho = depthwise.out_size(side, stride)
     bytes_s = 4 * (BATCH * side * side * c + BATCH * ho * ho * c
                    + c * k * k) / MEMORY_BYTES_PER_S
@@ -923,6 +958,175 @@ def phase_kernel_depthwise(smi: str) -> dict:
                   cases[4:], (1, 1, 1, 1, 1, 1, 2, 1, 2, 1, 3, 1)))})
     torch.cuda.empty_cache()
     return cases[0]
+
+
+# Swin-T's attention blocks of a 180x180 ROI: (map side, channels, heads,
+# shift), and how many blocks of each a forward runs; stage 4's 6x6 map
+# pads to one window, so its shift is dropped
+WA_SHAPES = ((45, 96, 3, 0), (45, 96, 3, 3), (23, 192, 6, 0),
+             (23, 192, 6, 3), (12, 384, 12, 0), (12, 384, 12, 3),
+             (6, 768, 24, 0), (6, 768, 24, 3))
+WA_BLOCKS = (1, 1, 1, 1, 3, 3, 1, 1)
+# outputs are convex combinations of 49 values of v (below 8 here): float32
+# sums in another order, __expf (about 2^-22 relative plus 2^-24 |x|)
+# against torch's exp
+WA_TOL = 1e-5
+WA_FORWARD_TOL = 1e-5  # probabilities, kernel path against SDPA's
+
+
+def wa_case(side: int, c: int, heads: int, shift: int) -> dict:
+    """The window-attention kernel at one block shape of a 2,048-slot
+    dispatch against its plain version (both on the card), with SDPA's
+    memory-efficient kernel on the same block's padded windows beside it
+    (``library_ms``, timed only)."""
+    from torch.nn import functional as F
+
+    from sykepic_tpu_torch.models import swin
+    from sykepic_tpu_torch.ops import window_attention as wa
+
+    m = swin.ShiftedWindowAttention(c, swin.WINDOW, shift, heads).to("cuda")
+    g = torch.Generator(device="cuda").manual_seed(side * 10 + shift)
+    with torch.no_grad():
+        m.qkv.weight.copy_(torch.randn(3 * c, c, device="cuda", generator=g)
+                           * c ** -0.5)
+        m.qkv.bias.copy_(torch.randn(3 * c, device="cuda", generator=g) / 2)
+        m.relative_position_bias_table.normal_(generator=g)
+        x = torch.randn(BATCH, side, side, c, device="cuda", generator=g)
+        qkv = F.linear(x, m.qkv.weight, m.qkv.bias)
+    del x
+    pad = -(-side // swin.WINDOW) * swin.WINDOW
+    shifts = m.shifts(pad, pad)
+    args = (qkv, m.qkv.bias.detach(), m.relative_position_bias_table.detach(),
+            heads, shifts)
+
+    def call():
+        return wa.window_attention(*args)
+
+    def plain():
+        return wa.window_attention_plain(*args)
+
+    got = call()
+    err = float((got - plain()).abs().max())
+    check(err <= WA_TOL, f"window attention {side}x{c}/{heads} shift "
+          f"{shifts}: max |diff| {err} (plain)")
+    del got
+    prof_ms = profiled_launches(call, "window_attention", TIMED_LAUNCHES,
+                                lambda: wa.launches,
+                                f"window attention {side}x{c}")
+    device_ms = prof_ms / TIMED_LAUNCHES
+    # SDPA on the padded, rolled windows, laid out as the model's SDPA path
+    # lays them (windows and heads on its head axis), with its mask
+    n = swin.WINDOW * swin.WINDOW
+    with torch.no_grad():
+        full = m.qkv.bias.detach().expand(BATCH, pad, pad, 3 * c).clone()
+        full[:, :side, :side] = qkv
+        full = torch.roll(full, (-shifts[0], -shifts[1]), (1, 2))
+        nh = pad // swin.WINDOW
+        q, k, v = full.view(BATCH, nh, swin.WINDOW, nh, swin.WINDOW, 3,
+                            heads, c // heads).permute(
+            5, 0, 1, 3, 6, 2, 4, 7).reshape(3, BATCH, nh * nh * heads, n,
+                                            c // heads).unbind(0)
+        del full
+        mask = m.attn_mask(pad, pad, q)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    lib_prof_ms, lib_recorded = profiled_kernels(library, "fmha",
+                                                 TIMED_LAUNCHES)
+    tokens = BATCH * side * side
+    bytes_s = 16 * tokens * c / MEMORY_BYTES_PER_S
+    flops_s = 4 * tokens * n * c / F32_OPS_PER_S
+    bound_ms = 1e3 * max(bytes_s, flops_s)
+    out = {"shape": [BATCH, side, side, c], "heads": heads,
+           "shifts": list(shifts), "heads_a_block": wa.plan(heads),
+           "max_abs_err": err, "ms": time_ms(call, TIMED_LAUNCHES),
+           "device_ms": device_ms, "loop_ms": loop_ms(call, TIMED_LAUNCHES),
+           "host_us": host_us(call), "bound_ms": bound_ms,
+           "bound_by": "bytes" if bytes_s >= flops_s else "ops",
+           "flop_bound_ms": 1e3 * flops_s,
+           "share_of_bound": bound_ms / device_ms,
+           # the benchmark reader's count: q, k, v and out of the padded
+           # windows (bench_port/attention_bytes.py)
+           "padded_bound_ms": 1e3 * 16 * BATCH * pad * pad * c
+           / MEMORY_BYTES_PER_S,
+           "plain_ms": time_ms(plain, TIMED_PLAIN),
+           "library_ms": loop_ms(library, TIMED_LAUNCHES),
+           "library_device_ms": (lib_prof_ms / lib_recorded
+                                 if lib_recorded else None)}
+    return out
+
+
+def wa_forward() -> dict:
+    """Swin-T's eval forward of one 2,048-slot dispatch on the card,
+    channels_last, with the kernel path and with SDPA's (the rule patched
+    off): device ms of each, the kernel's launches a forward (12) and the
+    largest gap between their probabilities."""
+    from sykepic_tpu_torch.models import registry, swin
+    from sykepic_tpu_torch.ops import window_attention as wa
+
+    model = registry.init_weights(registry.build_model("swin_t", 50), 0)
+    with torch.no_grad():  # a bias table of order 1, as a trained one
+        for m in model.modules():
+            if isinstance(m, swin.ShiftedWindowAttention):
+                m.relative_position_bias_table.normal_()
+    model = model.to("cuda", memory_format=torch.channels_last).eval()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.rand(BATCH, 180, 180, 3, device="cuda", generator=g).permute(
+        0, 3, 1, 2)
+
+    def forward():
+        with torch.inference_mode():
+            return torch.softmax(model(x) * np.log(1.3), dim=-1)
+
+    n0 = wa.launches
+    kernel = forward()
+    per_forward = wa.launches - n0
+    kernel_ms = loop_ms(forward, 3)
+    rule = swin.ShiftedWindowAttention.kernel_runs
+    swin.ShiftedWindowAttention.kernel_runs = lambda self, x: False
+    try:
+        n0 = wa.launches
+        sdpa = forward()
+        check(wa.launches == n0, "the patched rule launched the window "
+              "attention kernel")
+        sdpa_ms = loop_ms(forward, 3)
+    finally:
+        swin.ShiftedWindowAttention.kernel_runs = rule
+    dp = float((kernel - sdpa).abs().max())
+    check(per_forward == 12 and dp <= WA_FORWARD_TOL,
+          f"swin_t forward: {per_forward} window attention launches, max "
+          f"|dp| {dp}")
+    return {"network": "swin_t", "launches_per_forward": per_forward,
+            "max_abs_dp": dp, "kernel_ms": kernel_ms, "sdpa_ms": sdpa_ms}
+
+
+def phase_kernel_window_attention(smi: str) -> dict:
+    """The window-attention kernel at Swin-T's eight block shapes, and
+    Swin-T's forward with it against SDPA's path; returns the forward and
+    the shifted stage-1 case."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = []
+    for shape in WA_SHAPES:
+        cases.append(wa_case(*shape))
+        torch.cuda.empty_cache()
+    forward = wa_forward()
+    emit({"phase": "kernel_window_attention", "gpu": smi, "cases": cases,
+          "forward": forward,
+          # each shape's times by its blocks a forward
+          "device_ms_per_dispatch": sum(
+              case["device_ms"] * n for case, n in zip(cases, WA_BLOCKS)),
+          "bound_ms_per_dispatch": sum(
+              case["bound_ms"] * n for case, n in zip(cases, WA_BLOCKS)),
+          "padded_bound_ms_per_dispatch": sum(
+              case["padded_bound_ms"] * n
+              for case, n in zip(cases, WA_BLOCKS)),
+          "library_device_ms_per_dispatch": sum(
+              (case["library_device_ms"] or 0) * n
+              for case, n in zip(cases, WA_BLOCKS))})
+    torch.cuda.empty_cache()
+    return {"forward": forward, **cases[1]}
 
 
 def check_csvs(out_dir: Path, counts: dict, classes) -> None:
@@ -2011,7 +2215,13 @@ def phase_train_step_compare(run: dict) -> None:
 # -- the other model families -------------------------------------------------
 
 FAMILY_NETS = ("efficientnet_b0", "efficientnet_v2_s", "mobilenet_v3_large",
-               "vgg16_bn", "alexnet", "convnext_tiny", "regnet_y_400mf")
+               "vgg16_bn", "alexnet", "convnext_tiny", "regnet_y_400mf",
+               "swin_t")
+# eval LayerNorm and window-attention kernel launches a forward of each
+# family that takes them (Swin-T: the patch embedding's, two a block, four
+# patch mergings and the last; one attention a block)
+LN_PER_FORWARD = {"convnext_tiny": 22, "swin_t": 29}
+WA_PER_FORWARD = {"swin_t": 12}
 FAMILY_ROIS = 4000
 FAMILY_COMPARE = 64  # ROIs of each family's card-against-CPU comparison
 FAMILY_TRAIN = (
@@ -2029,7 +2239,8 @@ def build_family_dir(root: Path, name: str) -> Path:
     standard deviation of 8, 2.1 after ``prob``'s ``ln(1.3)`` temperature
     (at the init's scale every family's probabilities were near 1/50, and
     the card-against-CPU argmax check near empty), written as
-    ``best_state.msgpack`` by the port's writer."""
+    ``best_state.msgpack`` by the port's writer (Swin, which has no Flax
+    form: ``best_state.pth``)."""
     from sykepic_tpu_torch.models import checkpoint, registry
     from sykepic_tpu_torch.models.convnext import CNBlock
     from sykepic_tpu_torch.models.resnet import BatchNorm2d
@@ -2058,9 +2269,12 @@ def build_family_dir(root: Path, name: str) -> Path:
                     m.layer_scale.shape, generator=g))
         logits = model.eval()(torch.rand(8, 3, 180, 180, generator=g))
         model.head[-1].weight.mul_(8.0 / float(logits.std()))
-    checkpoint.save_variables(d / checkpoint.BEST_STATE,
-                              checkpoint.to_flax_variables(
-                                  model.state_dict(), name))
+    if name.startswith("swin"):  # no Flax form: torchvision's keys
+        torch.save(model.state_dict(), d / checkpoint.TORCH_STATE)
+    else:
+        checkpoint.save_variables(d / checkpoint.BEST_STATE,
+                                  checkpoint.to_flax_variables(
+                                      model.state_dict(), name))
     return d
 
 
@@ -2070,15 +2284,16 @@ def top_kinds(profile: dict, n: int = 3) -> list:
 
 
 def family_prob(name: str, raw: Path, counts: dict, small: list,
-                smi: str) -> tuple[int, int]:
+                smi: str) -> tuple[int, int, int, int]:
     """One family's model dir through ``prob`` on the card (cold, then
     warm), a profiled warm stream, and the card against
-    the CPU; returns K1's, the LayerNorm kernel's and the depthwise
-    kernel's launches in the cold run."""
+    the CPU; returns K1's, the LayerNorm kernel's, the depthwise
+    kernel's and the window-attention kernel's launches in the cold run."""
     from sykepic_tpu_torch.__main__ import main
     from sykepic_tpu_torch.compute.engine import Classifier
     from sykepic_tpu_torch.models import checkpoint
     from sykepic_tpu_torch.ops import depthwise, layernorm
+    from sykepic_tpu_torch.ops import window_attention as wa
 
     model_dir = build_family_dir(WORK / "families", name)
     classes = checkpoint.read_class_names(model_dir)
@@ -2091,17 +2306,21 @@ def family_prob(name: str, raw: Path, counts: dict, small: list,
               "-b", str(BATCH)] + (["-f"] if force else []))
 
     ln0, dw0 = layernorm.launches, depthwise.launches
+    wa.launches = 0
     cold_s, launches = timed_run(lambda: cli(False), {})
     ln_launches = layernorm.launches - ln0
     dw_launches = depthwise.launches - dw0
+    wa_launches = wa.launches
     dispatches = count_dispatches(samples)
     check_csvs(out, counts, classes)
     check(launches == dispatches and launches > 0,
           f"{name}: K1 launched {launches} times for {dispatches} dispatches")
-    # ConvNeXt's 22 LayerNorms a forward run as the eval kernel
-    ln_want = 22 * dispatches if name.startswith("convnext") else 0
+    ln_want = LN_PER_FORWARD.get(name, 0) * dispatches
     check(ln_launches == ln_want, f"{name}: the LayerNorm kernel launched "
           f"{ln_launches} times for {ln_want}")
+    wa_want = WA_PER_FORWARD.get(name, 0) * dispatches
+    check(wa_launches == wa_want, f"{name}: the window-attention kernel "
+          f"launched {wa_launches} times for {wa_want}")
     dw_want = DW_PER_FORWARD.get(name, 0) * dispatches
     check(dw_launches == dw_want, f"{name}: the depthwise kernel launched "
           f"{dw_launches} times for {dw_want}")
@@ -2133,6 +2352,7 @@ def family_prob(name: str, raw: Path, counts: dict, small: list,
           "rois": n_rois, "dispatches": dispatches, "k1_launches": launches,
           "layernorm_launches": ln_launches,
           "depthwise_launches": dw_launches,
+          "window_attention_launches": wa_launches,
           "cold_s": cold_s, "warm_s": warm_s,
           "warm_e2e_rois_per_s": n_rois / warm_s,
           "device_busy_share": profile["device_busy_share"],
@@ -2143,7 +2363,7 @@ def family_prob(name: str, raw: Path, counts: dict, small: list,
                               (pc.argmax(1) == pg.argmax(1)).mean()),
                           "ties_within_two_quanta": int((~clear).sum()),
                           "mean_top_prob": float(pc.max(1).mean())}})
-    return launches, ln_launches, dw_launches
+    return launches, ln_launches, dw_launches, wa_launches
 
 
 def family_train(name: str, augmentations: str, dataset: Path,
@@ -2242,9 +2462,10 @@ def family_train(name: str, augmentations: str, dataset: Path,
 
 
 def phase_families(run: dict, smi: str) -> dict:
-    """The seven families through ``prob`` and two through ``train``;
+    """The eight families through ``prob`` and two through ``train``;
     returns K1's launches of each family's ``prob`` run and train run, and
-    the LayerNorm and depthwise kernels' of each ``prob`` run."""
+    the LayerNorm, depthwise and window-attention kernels' of each ``prob``
+    run."""
     raw = WORK / "raw_families"
     counts = build_raw(raw, FAMILY_ROIS, seed=43, start=datetime(2020, 1, 1))
     small = list(build_raw(WORK / "raw_families_compare", FAMILY_COMPARE,
@@ -2253,9 +2474,10 @@ def phase_families(run: dict, smi: str) -> dict:
                 for name in FAMILY_NETS}
     train = {name: family_train(name, augs, run["dataset"], smi)
              for name, augs in FAMILY_TRAIN}
-    return {"prob": {name: k1 for name, (k1, _, _) in launched.items()},
-            "layernorm": {name: ln for name, (_, ln, _) in launched.items()},
-            "depthwise": {name: dw for name, (_, _, dw) in launched.items()},
+    return {"prob": {name: n[0] for name, n in launched.items()},
+            "layernorm": {name: n[1] for name, n in launched.items()},
+            "depthwise": {name: n[2] for name, n in launched.items()},
+            "window_attention": {name: n[3] for name, n in launched.items()},
             "train": train}
 
 
@@ -3176,6 +3398,7 @@ def main() -> int:
                       list(counts))
     ln = timed("kernel_layernorm", phase_kernel_layernorm, smi)
     dw = timed("kernel_depthwise", phase_kernel_depthwise, smi)
+    wa = timed("kernel_window_attention", phase_kernel_window_attention, smi)
     launches = timed("prob", phase_prob, model_dir, raw, counts)
     check(launches > 0, "the main path never launched K1")
     timed("profile", phase_profile, model_dir, list(counts))
@@ -3290,12 +3513,14 @@ def main() -> int:
     }, {
         # times at ConvNeXt-T's stage 1 of a 2,048-slot dispatch with the
         # convolution's bias (the other widths are in kernel_layernorm);
-        # launches: ConvNeXt-T's cold prob run (22 a dispatch)
+        # launches: ConvNeXt-T's cold prob run (22 a dispatch), each
+        # family's beside it
         "name": "layernorm",
         "route": "cuda",
         "source": "sykepic_tpu_torch/csrc/layernorm.cu",
         "replaces": None,
         "launches": families["layernorm"]["convnext_tiny"],
+        "families_launches": families["layernorm"],
         "max_abs_err": ln["max_abs_err"],
         "ms": ln["ms"],
         "device_ms": ln["device_ms"],
@@ -3326,6 +3551,29 @@ def main() -> int:
         "bound_ms": dw["bound_ms"],
         "bound_by": dw["bound_by"],
         "library_ms": dw["library_ms"],
+    }, {
+        # times at Swin-T's shifted stage 1 of a 2,048-slot dispatch (the
+        # other shapes are in kernel_window_attention); launches: Swin-T's
+        # cold prob run (12 a dispatch), each family's beside it, and the
+        # eval forward of kernel_window_attention (12); library_ms: SDPA's
+        # memory-efficient kernel on the same block's padded windows
+        "name": "window_attention",
+        "route": "cuda",
+        "source": "sykepic_tpu_torch/csrc/window_attention.cu",
+        "replaces": None,
+        "launches": families["window_attention"]["swin_t"],
+        "families_launches": families["window_attention"],
+        "forward_launches": wa["forward"]["launches_per_forward"],
+        "max_abs_err": wa["max_abs_err"],
+        "ms": wa["ms"],
+        "device_ms": wa["device_ms"],
+        "loop_ms": wa["loop_ms"],
+        "host_us": wa["host_us"],
+        "share_of_bound": wa["share_of_bound"],
+        "plain_ms": wa["plain_ms"],
+        "bound_ms": wa["bound_ms"],
+        "bound_by": wa["bound_by"],
+        "library_ms": wa["library_ms"],
     }], "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

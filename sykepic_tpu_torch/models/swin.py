@@ -26,20 +26,27 @@ final ``norm`` (``base.1``).
   width.
 
 The activations are NHWC throughout, and the eval model runs channels_last,
-so the patch embedding's permute is a free view. Attention is one
-``F.scaled_dot_product_attention`` call a block, its bias and region mask
-one additive float mask broadcast over the images: the windows of an image
-and their heads share SDPA's head axis, the window's position its sequence
-axis. On the card the memory-efficient backend runs it, one fused kernel a
-block (float32, with an additive mask).
+so the patch embedding's permute is a free view.
 
 In an eval forward on the card (:func:`~.layers.eval_kernel_runs` of the
 NCHW view) every LayerNorm of at most
 :data:`~sykepic_tpu_torch.ops.layernorm.MAX_CHANNELS` channels is the
 hand-written kernel of :mod:`sykepic_tpu_torch.ops.layernorm` (29 launches
 a Swin-T forward), the patch convolution's bias added inside it
-(``pre_bias``); elsewhere ATen's LayerNorm runs. The modules, parameters
-and state-dict keys are the same on both paths.
+(``pre_bias``); and every attention of window 7 and head dim 32 whose
+``qkv`` and ``proj`` are exactly ``nn.Linear``
+(:meth:`ShiftedWindowAttention.kernel_runs`: Swin-T, -S and -B) is ``qkv``
+on the map's real tokens, the hand-written kernel of
+:mod:`sykepic_tpu_torch.ops.window_attention` (12 launches a Swin-T
+forward), which reads the windows, the roll and the padding from the
+unpadded map by its addressing, and ``proj`` on the real tokens: no pad,
+roll, partition or reverse copy. Elsewhere (training, bf16, autocast, the
+CPU, a tensor-parallel ``qkv``) ATen's LayerNorm runs, and the attention is
+one ``F.scaled_dot_product_attention`` call a block over the padded,
+rolled windows, its bias and region mask one additive float mask
+broadcast over the images: the windows of an image and their heads share
+SDPA's head axis, the window's position its sequence axis. The modules,
+parameters and state-dict keys are the same on both paths.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..ops import layernorm
+from ..ops import layernorm, window_attention
 from .convnext import Permute
 from .layers import conv_no_bias, eval_kernel_runs
 from .resnet import Backbone, Head, StochasticDepth
@@ -67,7 +74,6 @@ WINDOW = 7
 PATCH = 4
 MLP_RATIO = 4
 LN_EPS = 1e-5
-REGION_MASK = -100.0
 MASK_ALIGN = 8  # SDPA's memory-efficient kernel reads its mask rows aligned
 
 
@@ -79,17 +85,6 @@ def relative_position_index(window: int) -> torch.Tensor:
     coords = torch.stack((ys.flatten(), xs.flatten()))
     rel = (coords[:, :, None] - coords[:, None, :]) + (window - 1)
     return (rel[0] * (2 * window - 1) + rel[1]).flatten()
-
-
-def _regions(n: int, window: int, shift: int, device) -> torch.Tensor:
-    """The region of each row (or column) of a padded, rolled axis of
-    ``n``: 0 before ``n - window``, 1 before ``n - shift``, 2 after; all
-    one region where the axis is not shifted. Made on ``device``: a copy
-    from the host would wait for the device's queue."""
-    r = torch.arange(n, device=device)
-    if not shift:
-        return torch.zeros_like(r)
-    return (r >= n - window).long() + (r >= n - shift).long()
 
 
 def _ceil(a: int, b: int) -> int:
@@ -149,21 +144,34 @@ class ShiftedWindowAttention(nn.Module):
         n = w * w
         bias = self.relative_position_bias_table[
             self.relative_position_index].view(n, n, heads).permute(2, 0, 1)
-        sh, sw = self.shifts(pad_h, pad_w)
-        rows = (_regions(pad_h, w, sh, ref.device)[:, None] * 3
-                + _regions(pad_w, w, sw, ref.device))
-        ids = rows.view(pad_h // w, w, pad_w // w, w).permute(
-            0, 2, 1, 3).reshape(-1, n)
-        region = (ids[:, None, :] != ids[:, :, None]) * REGION_MASK
-        mask = ref.new_empty(ids.shape[0], heads, n,
+        region = window_attention.region_mask(
+            pad_h, pad_w, w, self.shifts(pad_h, pad_w), ref.device)
+        mask = ref.new_empty(region.shape[0], heads, n,
                              _ceil(n, MASK_ALIGN) * MASK_ALIGN)[..., :n]
         mask.copy_(bias[None] + region[:, None].to(ref.dtype))
         return mask.flatten(0, 1)[None]
 
+    def kernel_runs(self, x: torch.Tensor) -> bool:
+        """Whether the forward of NHWC ``x`` runs the window-attention
+        kernel: the eval rule (:func:`~.layers.eval_kernel_runs` of the
+        NCHW view), a window and head size the kernel takes, and ``qkv``
+        and ``proj`` exactly ``nn.Linear`` (a tensor-parallel ``qkv``
+        keeps SDPA's path)."""
+        return (type(self.qkv) is nn.Linear and type(self.proj) is nn.Linear
+                and self.window == window_attention.WINDOW
+                and x.shape[-1] == self.num_heads * window_attention.HEAD_DIM
+                and eval_kernel_runs(x.permute(0, 3, 1, 2), self))
+
     def forward(self, x):
         """NHWC ``x`` (the normed tokens) -> NHWC."""
         b, h, w_, c = x.shape
-        w, heads = self.window, self.num_heads
+        w = self.window
+        if self.kernel_runs(x):
+            y = window_attention.window_attention(
+                self.qkv(x), self.qkv.bias, self.relative_position_bias_table,
+                self.num_heads, self.shifts(_ceil(h, w) * w, _ceil(w_, w) * w))
+            return self.proj(y)
+        heads = self.num_heads
         x = F.pad(x, (0, 0, 0, -w_ % w, 0, -h % w))
         pad_h, pad_w = x.shape[1:3]
         sh, sw = self.shifts(pad_h, pad_w)

@@ -39,7 +39,13 @@ ConvNeXt-T's and EfficientNet-B0's eval forwards with it against ATen's,
 probabilities within 1e-5. Swin-T's eval forward at 180 px against the
 benchmark's plain reference (``bench_port/reference/nets/swin_t.py``, TF32
 off) within 1e-5 of the logits' spread, with 29 LayerNorm kernel launches
-and one SDPA kernel a block (12) a forward.
+and one attention kernel a block (12) a forward. Swin's window-attention
+kernel (``csrc/window_attention.cu``) against its plain version within
+1e-5 absolute plus 1e-5 relative (outputs are convex combinations of v;
+float32 sums in another order, ``__expf``) at Swin-T's eight block shapes,
+Swin-B's heads, odd maps and a 2,048-slot stage 1; it raises on what it
+does not take; Swin-T's eval forward launches it 12 times, leaves no SDPA
+or roll kernel, and its probabilities lie within 1e-5 of SDPA's path.
 """
 
 import numpy as np
@@ -974,3 +980,144 @@ def test_swin_t_eval_forward_against_the_plain_reference(cuda):
                  if any(w in name.lower() for w in SWIN_ATTENTION_WORDS)}
     print(f"swin_t attention kernels: {attention}")
     assert sum(attention.values()) == 12
+
+
+# Swin's window-attention kernel (csrc/window_attention.cu) against its
+# plain version on the card: Swin-T's eight block shapes of a 180-px ROI
+# (side, channels, heads, shift; stage 4's 6x6 pads to one window, so its
+# shift is dropped), Swin-B's heads and other head counts that take one
+# head a block, and odd maps. WA_TOL: each output is a convex combination
+# of 49 values of v (|v| < 8 here), float32 sums of 32 and 49 products in
+# another order, __expf (about 2^-22 relative plus 2^-24 |x|) against
+# torch's exp
+WA_SHAPES = ((45, 45, 96, 3, 0), (45, 45, 96, 3, 3), (23, 23, 192, 6, 0),
+             (23, 23, 192, 6, 3), (12, 12, 384, 12, 0), (12, 12, 384, 12, 3),
+             (6, 6, 768, 24, 0), (6, 6, 768, 24, 3))
+WA_OTHER = ((45, 45, 128, 4, 3), (12, 12, 512, 16, 3), (6, 6, 1024, 32, 0),
+            (9, 9, 32, 1, 3), (8, 13, 64, 2, 3), (1, 1, 160, 5, 0),
+            (3, 20, 96, 3, 3), (30, 5, 224, 7, 3))
+WA_TOL = 1e-5
+
+
+def _wa_inputs(n, h, w, c, heads, shift, seed, device):
+    from torch.nn import functional as F
+
+    from sykepic_tpu_torch.models import swin
+
+    m = swin.ShiftedWindowAttention(c, swin.WINDOW, shift, heads).to(device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        m.qkv.weight.copy_(torch.randn(3 * c, c, generator=g, device=device)
+                           * c ** -0.5)
+        m.qkv.bias.copy_(torch.randn(3 * c, generator=g, device=device) / 2)
+        m.relative_position_bias_table.normal_(generator=g)
+        x = torch.randn(n, h, w, c, generator=g, device=device)
+        qkv = F.linear(x, m.qkv.weight, m.qkv.bias)
+    shifts = m.shifts(-(-h // 7) * 7, -(-w // 7) * 7)
+    return (qkv, m.qkv.bias.detach(), m.relative_position_bias_table.detach(),
+            heads, shifts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w,c,heads,shift", WA_SHAPES + WA_OTHER)
+def test_window_attention_kernel_matches_plain_version(cuda, h, w, c, heads,
+                                                       shift):
+    from sykepic_tpu_torch.ops import window_attention as wa
+
+    args = _wa_inputs(16, h, w, c, heads, shift, h * 100 + c + shift, cuda)
+    n0 = wa.launches
+    got = wa.window_attention(*args)
+    assert wa.launches - n0 == 1
+    want = wa.window_attention_plain(*args)
+    assert got.shape == want.shape and got.is_contiguous()
+    torch.testing.assert_close(got, want, rtol=WA_TOL, atol=WA_TOL)
+
+
+@pytest.mark.gpu
+def test_window_attention_kernel_at_the_stage_1_dispatch(cuda):
+    """Swin-T's stage 1 at a 2,048-slot dispatch, shifted: 2048 x 45x45 x
+    288 channels of qkv."""
+    from sykepic_tpu_torch.ops import window_attention as wa
+
+    args = _wa_inputs(2048, 45, 45, 96, 3, 3, 1, cuda)
+    got = wa.window_attention(*args)
+    want = wa.window_attention_plain(*args)
+    torch.testing.assert_close(got, want, rtol=WA_TOL, atol=WA_TOL)
+
+
+@pytest.mark.gpu
+def test_window_attention_rejects_what_it_does_not_take(cuda):
+    from sykepic_tpu_torch.ops import window_attention as wa
+
+    qkv, bias, table, heads, shifts = _wa_inputs(2, 9, 9, 96, 3, 3, 5, cuda)
+    bad = [
+        (qkv.transpose(1, 2), bias, table, heads, shifts),  # not contiguous
+        (qkv.double(), bias.double(), table.double(), heads, shifts),
+        (qkv, bias, table, 6, shifts),  # heads of 16
+        (qkv[..., :240].contiguous(), bias[:240], table, heads, shifts),
+        (qkv, bias, torch.zeros(81, 3, device=cuda), heads, shifts),  # 5x5
+        (qkv, bias[:96], table, heads, shifts),  # bias of another width
+        (qkv, None, table, heads, shifts),
+        (qkv, bias.cpu(), table, heads, shifts),  # on another device
+        (qkv, bias, table, heads, (7, 0)),  # a shift past the window
+        (qkv[0], bias, table, heads, shifts),  # not 4-D
+        (qkv[:, :0], bias, table, heads, shifts),  # an empty map
+        # contiguous, but one float past 16-byte alignment
+        (torch.zeros(qkv.numel() + 1, device=cuda)[1:].view(qkv.shape), bias,
+         table, heads, shifts),
+    ]
+    n0 = wa.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            wa.window_attention(*args)
+    assert wa.launches == n0
+    empty = wa.window_attention(qkv[:0], bias, table, heads, shifts)
+    assert empty.shape == (0, 9, 9, 96) and wa.launches == n0
+
+
+@pytest.mark.gpu
+def test_swin_t_eval_forward_runs_the_window_attention_kernel(cuda,
+                                                              monkeypatch):
+    """Swin-T's eval forward on the card, channels_last: the kernel
+    launched once a block (12 a forward) under a name that holds
+    ``attention`` and none of the other readers' words; no SDPA
+    (``fmha``) and no ``roll_cuda_kernel`` left in its trace; probabilities
+    within 1e-5 of the same forward on SDPA's path (the rule patched
+    off)."""
+    import math
+
+    from bench_port import tracing
+    from sykepic_tpu_torch.models import registry, swin
+    from sykepic_tpu_torch.ops import window_attention as wa
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    model = registry.init_weights(registry.build_model("swin_t", 50), 0)
+    with torch.no_grad():  # a bias table of order 1, as a trained one
+        for m in model.modules():
+            if isinstance(m, swin.ShiftedWindowAttention):
+                m.relative_position_bias_table.normal_()
+    model = model.to(cuda, memory_format=torch.channels_last).eval()
+    x = torch.rand(16, 3, 180, 180, generator=torch.Generator().manual_seed(4))
+    x = x.to(cuda).contiguous(memory_format=torch.channels_last)
+
+    def probs():
+        with torch.inference_mode():
+            return torch.softmax(model(x) * math.log(1.3), dim=-1)
+
+    n0 = wa.launches
+    got = probs().cpu()
+    assert wa.launches - n0 == 12
+    with tracing.DeviceTrace() as tr:
+        probs()
+    names = list(tr.summary["kernels"])
+    ours = {n: k for n, (_, k) in tr.summary["kernels"].items()
+            if "window_attention" in n}
+    assert sum(ours.values()) == 12, names
+    assert not any(w in n for n in ours for w in READER_WORDS)
+    assert not any("fmha" in n or "roll_cuda_kernel" in n
+                   for n in names), names
+    monkeypatch.setattr(swin.ShiftedWindowAttention, "kernel_runs",
+                        lambda self, x: False)
+    want = probs().cpu()
+    assert wa.launches - n0 == 24
+    assert float((got - want).abs().max()) <= 1e-5
